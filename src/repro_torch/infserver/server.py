@@ -1,0 +1,397 @@
+"""InfServer: continuous-batching inference service (§3.2); counterpart of
+`repro.infserver.server`, single-device path.
+
+Collects observations from many Actor clients, runs ONE forward over the
+continuous batch on the card, and scatters (action, logp, value) back.
+
+Design, as in `repro`:
+
+* **Ticket futures** — `submit` returns a `Ticket` with `done()`/`result()`;
+  the integer id keeps the `get(ticket)` protocol. Results whose owner never
+  collects them are expired after `ticket_ttl_flushes` flushes.
+* **Bounded request queue** — hitting `max_batch` queued rows flushes.
+* **Multi-model routing** — one server hosts the learner theta plus frozen
+  opponents phi. A flush groups tickets by model, pads each model's
+  sub-batch to a shared power-of-two bucket, stacks them to (M, S, L) and
+  runs ONE forward over params stacked on a model axis (the port's stand-in
+  for `vmap`). The buckets keep the set of shapes small and stable, which
+  is what CUDA graphs need later.
+* **Param hot-swap** — `update_params`/`ensure_model` replace a model's
+  params; swaps are hash-gated (a refresh carrying the content hash the
+  route already hosts is a no-op) and a refresh whose pool version is older
+  than the hosted one is dropped.
+* **Telemetry** — per-batch latency and occupancy feed `stats()`.
+
+The forwards run inside `dispatch.serving()`, so `REPRO_KERNELS_INFER=bf16`
+applies to them and never to a learner's forward. Each flush uploads one
+padded observation batch and copies one result block back to the host:
+results are host numpy arrays, as `repro`'s `np.asarray` gives. `repro`'s
+mesh-sharded mode (`mesh=`) is not ported.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Any, Dict, Hashable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.actors.policy import make_obs_policy
+from repro_torch.kernels import dispatch
+from repro_torch.utils import resolve_device, tree_map, tree_stack
+
+_DEFAULT = "__default__"
+
+
+def _bucket(n: int) -> int:
+    """Next power of two >= n: bounds the set of batch shapes."""
+    return 1 << max(0, (n - 1).bit_length())
+
+
+class Ticket:
+    """Future handle for a submitted observation batch."""
+    __slots__ = ("tid", "model", "rows", "_server")
+
+    def __init__(self, tid: int, model: Hashable, rows: int, server: "InfServer"):
+        self.tid, self.model, self.rows, self._server = tid, model, rows, server
+
+    def done(self) -> bool:
+        return self.tid in self._server._results
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self._server.get(self)
+
+    def __int__(self) -> int:
+        return self.tid
+
+    def __repr__(self):
+        return f"Ticket({self.tid}, model={self.model!r}, rows={self.rows})"
+
+
+class InfServer:
+    def __init__(self, cfg, num_actions: int, params=None, *, device=None,
+                 max_batch: int = 256, seed: int = 0,
+                 ticket_ttl_flushes: int = 512):
+        """`device` defaults to CUDA and raises where there is none; the CPU
+        tests pass device="cpu". Sampling draws from a `torch.Generator` on
+        that device seeded with `seed`.
+
+        `ticket_ttl_flushes` bounds result retention: a resolved ticket
+        whose owner hasn't collected it within that many subsequent
+        flushes is expired (its result arrays freed, `tickets_expired`
+        bumped)."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.policy = make_obs_policy(cfg, num_actions)
+        self.max_batch = max_batch
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # one reentrant lock serializes registry mutation, queueing and
+        # flushing (`get` may re-enter `flush`, hence reentrant)
+        self._lock = threading.RLock()
+        # model registry: key -> params, with a swap counter so the
+        # stacked-params cache knows when a hot-swap invalidated it, plus
+        # the param-plane identity of the hosted copy (content hash +
+        # pool version) so identical refreshes no-op
+        self._models: Dict[Hashable, Any] = {}
+        self._versions: Dict[Hashable, int] = {}
+        self._content_hashes: Dict[Hashable, str] = {}
+        self._pool_versions: Dict[Hashable, int] = {}
+        self._default_key: Optional[Hashable] = None
+        self._stack_cache: Dict[tuple, Any] = {}
+        self.swaps = 0               # hot-swaps that actually (re)placed params
+        self.swap_noops = 0          # refreshes gated off by content hash
+        self.swap_stale_drops = 0    # refreshes dropped as version downgrades
+        if params is not None:
+            self.register_model(_DEFAULT, params)
+        # request queue
+        self._pending: List[Tuple[int, Hashable, np.ndarray]] = []
+        self._pending_rows = 0
+        self._results: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        # tid -> batches_run at resolution; drives dead-owner expiry
+        self._result_born: Dict[int, int] = {}
+        self.ticket_ttl_flushes = ticket_ttl_flushes
+        self.tickets_expired = 0
+        self._next_id = 0
+        # telemetry
+        self.requests_served = 0
+        self.batches_run = 0
+        self.rows_served = 0
+        self.rows_padded = 0
+        self._latency_sum = 0.0
+        self.last_batch_latency_s = 0.0
+        self.last_batch_models = 0
+
+    # -- model registry ------------------------------------------------------
+    @property
+    def params(self):
+        """Legacy accessor: the default model's current params."""
+        return self._models.get(self._default_key)
+
+    def _place(self, params):
+        """Params on the server's device (tensors already there are hosted
+        live, as `repro` hosts its pytrees; numpy leaves are uploaded)."""
+        return tree_map(lambda a: torch.as_tensor(a, device=self.device), params)
+
+    def register_model(self, key: Hashable, params,
+                       content_hash: Optional[str] = None,
+                       version: Optional[int] = None) -> None:
+        """Host (or refresh) a model. The first registered model becomes
+        the default route for `submit(obs)` without an explicit model.
+
+        A refresh whose `content_hash` matches the hosted route is a no-op;
+        one whose `version` is older than the hosted one is dropped.
+        Without a hash the swap is unconditional."""
+        with self._lock:
+            if self._default_key is None:
+                self._default_key = key
+            if key in self._models:
+                if (content_hash is not None
+                        and self._content_hashes.get(key) == content_hash):
+                    self.swap_noops += 1
+                    return
+                hosted_v = self._pool_versions.get(key)
+                if (version is not None and hosted_v is not None
+                        and version < hosted_v):
+                    self.swap_stale_drops += 1
+                    return
+            self.swaps += 1
+            self._versions[key] = self._versions.get(key, -1) + 1
+            self._models[key] = self._place(params)
+            if content_hash is not None:
+                self._content_hashes[key] = content_hash
+            else:
+                self._content_hashes.pop(key, None)
+            if version is not None:
+                self._pool_versions[key] = version
+            else:
+                self._pool_versions.pop(key, None)
+            # stacked copies holding this key can never match again (its
+            # version bumped): drop them so they don't pin device memory
+            self._stack_cache = {ck: v for ck, v in self._stack_cache.items()
+                                 if all(k != key for k, _ in ck)}
+
+    def ensure_model(self, key: Hashable, params,
+                     content_hash: Optional[str] = None) -> None:
+        """Register if absent (an existing route is never overwritten)."""
+        with self._lock:
+            if key not in self._models:
+                self.register_model(key, params, content_hash=content_hash)
+
+    def has_model(self, key: Hashable,
+                  content_hash: Optional[str] = None) -> bool:
+        """Is `key` hosted (and, with `content_hash`, at exactly that content)?"""
+        with self._lock:
+            if key not in self._models:
+                return False
+            return (content_hash is None
+                    or self._content_hashes.get(key) == content_hash)
+
+    def update_params(self, params, key: Hashable = None,
+                      content_hash: Optional[str] = None,
+                      version: Optional[int] = None) -> None:
+        """Learner pushed new theta -> hot-swap. In-flight flushes finish
+        under the old weights, the next flush sees the new ones."""
+        with self._lock:
+            if key is None:
+                key = self._default_key if self._default_key is not None else _DEFAULT
+            self.register_model(key, params, content_hash=content_hash,
+                                version=version)
+
+    def evict_model(self, key: Hashable) -> bool:
+        """Drop a route. Returns False (and keeps the route) when requests
+        for it are still queued."""
+        with self._lock:
+            if any(k == key for _, k, _ in self._pending):
+                return False
+            self._models.pop(key, None)
+            self._versions.pop(key, None)
+            self._content_hashes.pop(key, None)
+            self._pool_versions.pop(key, None)
+            self._stack_cache.clear()
+            if key == self._default_key:
+                self._default_key = next(iter(self._models), None)
+            return True
+
+    # -- client protocol -----------------------------------------------------
+    def submit(self, obs: np.ndarray, model: Hashable = None) -> Ticket:
+        """Queue a (k, L) observation batch for `model` (default: theta);
+        returns a ticket future. May block for one forward when this submit
+        fills the queue to `max_batch` rows. The obs array is referenced
+        until that flush, not copied."""
+        obs = np.asarray(obs)
+        with self._lock:
+            key = self._default_key if model is None else model
+            if key not in self._models:
+                raise KeyError(f"unknown model route {key!r}")
+            ticket = Ticket(self._next_id, key, obs.shape[0], self)
+            self._next_id += 1
+            self._pending.append((ticket.tid, key, obs))
+            self._pending_rows += obs.shape[0]
+            if self._pending_rows >= self.max_batch:
+                self.flush()
+            return ticket
+
+    @property
+    def queue_depth(self) -> int:
+        return self._pending_rows
+
+    def flush(self) -> None:
+        """Run one forward over everything pending and resolve tickets.
+        Blocks for the device round trip while holding the server lock."""
+        with self._lock:
+            if not self._pending:
+                return
+            t0 = time.perf_counter()
+            pending, self._pending, self._pending_rows = self._pending, [], 0
+
+            groups: Dict[Hashable, List[Tuple[int, np.ndarray]]] = {}
+            for tid, key, obs in pending:
+                groups.setdefault(key, []).append((tid, obs))
+
+            with dispatch.serving(), torch.inference_mode():
+                if len(groups) == 1:
+                    (key, items), = groups.items()
+                    self._flush_single(key, items)
+                else:
+                    self._flush_grouped(groups)
+
+            self.requests_served += len(pending)
+            self.batches_run += 1
+            self.last_batch_models = len(groups)
+            self.last_batch_latency_s = time.perf_counter() - t0
+            self._latency_sum += self.last_batch_latency_s
+            # dead-owner expiry; strict >: a result born in THIS flush must
+            # survive the full TTL window before it can be reclaimed
+            expired = [tid for tid, born in self._result_born.items()
+                       if self.batches_run - born > self.ticket_ttl_flushes]
+            for tid in expired:
+                self._results.pop(tid, None)
+                self._result_born.pop(tid, None)
+                self.tickets_expired += 1
+
+    def _forward(self, params, obs: np.ndarray):
+        """Upload the padded batch, act, and copy (a, logp, v) back to the
+        host as one block (actions ride as fp32, exact below 2**24)."""
+        tokens = torch.from_numpy(obs).to(self.device, torch.long)
+        a, logp, v = self.policy.act(params, self.gen, tokens)
+        out = torch.stack([a.float(), logp.float(), v.float()], dim=-1).cpu().numpy()
+        return out[..., 0].astype(np.int32), out[..., 1], out[..., 2]
+
+    def _flush_single(self, key, items) -> None:
+        tickets = [t for t, _ in items]
+        sizes = [o.shape[0] for _, o in items]
+        rows = sum(sizes)
+        big = np.concatenate([o for _, o in items], axis=0)
+        pad = _bucket(rows) - rows
+        if pad:
+            big = np.concatenate([big, np.zeros((pad,) + big.shape[1:],
+                                                big.dtype)], axis=0)
+        a, logp, v = self._forward(self._models[key], big)
+        self._scatter(tickets, sizes, a, logp, v)
+        self.rows_served += rows
+        self.rows_padded += rows + pad
+
+    def _flush_grouped(self, groups) -> None:
+        keys = sorted(groups, key=repr)
+        per_model = [np.concatenate([o for _, o in groups[k]], axis=0)
+                     for k in keys]
+        rows = [m.shape[0] for m in per_model]
+        S = _bucket(max(rows))
+        obs_mat = np.zeros((len(keys), S) + per_model[0].shape[1:],
+                           per_model[0].dtype)
+        for m, sub in enumerate(per_model):
+            obs_mat[m, :sub.shape[0]] = sub
+        a, logp, v = self._forward(self._stacked_params(keys), obs_mat)
+        for m, k in enumerate(keys):
+            tickets = [t for t, _ in groups[k]]
+            sizes = [o.shape[0] for _, o in groups[k]]
+            self._scatter(tickets, sizes, a[m], logp[m], v[m])
+        self.rows_served += sum(rows)
+        self.rows_padded += len(keys) * S
+
+    def _stacked_params(self, keys) -> Any:
+        """(M, ...) stacked params for the model set, cached until any
+        member hot-swaps (version bump clears the cache)."""
+        cache_key = tuple((k, self._versions[k]) for k in keys)
+        hit = self._stack_cache.get(cache_key)
+        if hit is None:
+            hit = tree_stack([self._models[k] for k in keys])
+            while len(self._stack_cache) >= 8:     # bound without thrashing
+                self._stack_cache.pop(next(iter(self._stack_cache)))
+            self._stack_cache[cache_key] = hit
+        return hit
+
+    def _scatter(self, tickets, sizes, a, logp, v) -> None:
+        ofs = 0
+        for t, n in zip(tickets, sizes):
+            self._results[t] = (a[ofs:ofs + n], logp[ofs:ofs + n],
+                                v[ofs:ofs + n])
+            self._result_born[t] = self.batches_run
+            ofs += n
+
+    def get(self, ticket) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Resolve a ticket: (actions, logps, values) for its rows. An
+        unresolved ticket triggers a flush. Results pop on read; a second
+        get for the same ticket raises KeyError."""
+        tid = ticket.tid if isinstance(ticket, Ticket) else int(ticket)
+        with self._lock:
+            if tid not in self._results:
+                self.flush()
+            self._result_born.pop(tid, None)
+            return self._results.pop(tid)
+
+    def discard(self, ticket) -> None:
+        """Forget a ticket without consuming it: drop its queued request
+        (if not yet flushed) and its result (if already resolved)."""
+        tid = ticket.tid if isinstance(ticket, Ticket) else int(ticket)
+        with self._lock:
+            self._results.pop(tid, None)
+            self._result_born.pop(tid, None)
+            kept = [(t, k, o) for t, k, o in self._pending if t != tid]
+            if len(kept) != len(self._pending):
+                self._pending_rows -= sum(o.shape[0] for t, k, o
+                                          in self._pending if t == tid)
+                self._pending = kept
+
+    # -- telemetry ------------------------------------------------------------
+    def telemetry(self) -> dict:
+        """The router's cheap occupancy/latency probe (a subset of stats())."""
+        batches = max(self.batches_run, 1)
+        return {
+            "queue_depth": self.queue_depth,
+            "results_held": len(self._results),
+            "rows_served": self.rows_served,
+            "batches_run": self.batches_run,
+            "occupancy": self.rows_served / max(self.rows_padded, 1),
+            "mean_batch_latency_ms": 1e3 * self._latency_sum / batches,
+            "last_batch_latency_ms": 1e3 * self.last_batch_latency_s,
+            "models_hosted": len(self._models),
+        }
+
+    def stats(self) -> dict:
+        batches = max(self.batches_run, 1)
+        return {
+            "requests_served": self.requests_served,
+            "batches_run": self.batches_run,
+            "rows_served": self.rows_served,
+            "mean_batch_rows": self.rows_served / batches,
+            "occupancy": self.rows_served / max(self.rows_padded, 1),
+            "mean_batch_latency_ms": 1e3 * self._latency_sum / batches,
+            "last_batch_latency_ms": 1e3 * self.last_batch_latency_s,
+            "last_batch_models": self.last_batch_models,
+            "swaps": self.swaps,
+            "swap_noops": self.swap_noops,
+            "swap_stale_drops": self.swap_stale_drops,
+            "models_hosted": len(self._models),
+            "queue_depth": self.queue_depth,
+            "results_held": len(self._results),
+            "tickets_expired": self.tickets_expired,
+            "sharded": False,
+            "mesh_shape": None,
+            "infer_mode": os.environ.get("REPRO_KERNELS_INFER") or None,
+            # per-call routing counts of the port's dispatch (a misrouted
+            # reference tier shows up here)
+            "dispatch": dispatch.stats(),
+        }

@@ -1,0 +1,55 @@
+"""RMSNorm wrapper: the CUDA kernel for CUDA tensors, the plain version for
+CPU tensors.
+
+Replaces `repro.kernels.rmsnorm.kernel.rmsnorm_p` (`_rmsnorm_kernel`); the
+kernel is `csrc/rmsnorm.cu`, whose header says what bounds it and how it is
+laid out. There is no padding to a block multiple: the kernel masks its own
+ragged edge. `rmsnorm.launches` counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """y = x * rsqrt(mean(x^2) + eps) * w over the last axis, in x's dtype.
+
+    x: (..., d); w: (d,), or (M, d) with x.shape[0] == M (one weight row
+    per model)."""
+    d = x.shape[-1]
+    if w.dim() not in (1, 2) or w.shape[-1] != d:
+        raise ValueError(f"rmsnorm: weight {tuple(w.shape)} does not match d={d}")
+    if w.dim() == 2 and (x.dim() < 2 or x.shape[0] != w.shape[0]):
+        raise ValueError(f"rmsnorm: (M, d) weight {tuple(w.shape)} needs x with "
+                         f"leading axis M, got {tuple(x.shape)}")
+    if w.device != x.device:
+        raise ValueError(f"rmsnorm: x on {x.device}, weight on {w.device}")
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"rmsnorm kernel takes {DTYPES}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("rmsnorm kernel needs a contiguous x")
+    rows = x.numel() // d if d else 0
+    if x.numel() >= 2 ** 31:
+        raise ValueError("rmsnorm kernel indexes with 32-bit ints")
+    w = w.float().contiguous()
+    rows_per_weight = rows // w.shape[0] if w.dim() == 2 else max(rows, 1)
+    y = torch.empty_like(x)
+    lib = _build.library()
+    err = lib.rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
+                          rows_per_weight, eps, int(x.dtype == torch.bfloat16),
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rmsnorm_fwd")
+    rmsnorm.launches += 1
+    return y
+
+
+rmsnorm.launches = 0

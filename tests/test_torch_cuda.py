@@ -1,0 +1,155 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: every test skips where there is no CUDA device, since a CUDA
+kernel has no CPU mode. This file imports neither jax nor `repro`, so the
+card's machine, which has no jax, runs it without the JAX conftest:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: fp32 2e-5 (RMSNorm) and 1e-4 (attention: the kernel sums the
+score and p.V products in another order than the plain version's matmuls);
+bf16 2e-2.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.actors.policy import make_obs_policy
+from repro_torch.configs import get_arch
+from repro_torch.infserver import InfServer
+from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.models import init_params
+from repro_torch.utils import tree_map
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("shape,dtype,models,offset", [
+    ((37, 96), torch.float32, 1, 0),        # 16-byte vector path
+    ((6656, 128), torch.bfloat16, 1, 0),    # policy-s serving rows
+    ((5, 7, 33), torch.bfloat16, 1, 0),     # odd d: scalar path
+    ((9, 64), torch.float32, 1, 1),         # misaligned x: scalar path
+    ((2, 50, 96), torch.float32, 2, 0),     # one weight row per model
+    ((2, 128, 26, 128), torch.bfloat16, 2, 0),  # grouped theta + phi flush, policy-s
+    ((2, 128, 26, 256), torch.bfloat16, 2, 0),  # grouped theta + phi flush, policy-m
+])
+def test_rmsnorm_kernel_matches_plain(gen, shape, dtype, models, offset):
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)[offset:].view(shape)
+    wshape = (models, shape[-1]) if models > 1 else (shape[-1],)
+    w = 1.0 + 0.1 * torch.randn(wshape, generator=gen, device="cuda")
+    before = rmsnorm.launches
+    y = rmsnorm(x, w)
+    assert rmsnorm.launches == before + 1 and y.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(y.float(), rmsnorm_ref(x, w).float(), atol=tol, rtol=0)
+
+
+# B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, mixed
+FLASH = [
+    (256, 4, 2, 26, 26, 32, torch.bfloat16, True, 0, 0.0, None, False),
+    (256, 8, 4, 26, 26, 32, torch.bfloat16, True, 0, 0.0, None, True),
+    (3, 4, 2, 37, 37, 64, torch.float32, True, 0, 0.0, None, False),
+    (2, 4, 1, 37, 37, 128, torch.float32, True, 5, 20.0, None, False),
+    (2, 8, 2, 37, 37, 256, torch.float32, True, 0, 0.0, None, False),
+    (2, 4, 2, 33, 33, 32, torch.float32, False, 0, 0.0, None, False),
+    (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None, False),    # Tq != Tk
+    (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40, False),     # rows with no live key
+    (1, 4, 2, 1024, 1024, 32, torch.float32, True, 100, 30.0, None, False),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,d,dtype,causal,window,cap,kv_len,mixed", FLASH)
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_flash_kernel_matches_plain(gen, B, H, KV, Tq, Tk, d, dtype, causal, window, cap,
+                                    kv_len, mixed, layout):
+    def make(heads, T):
+        if layout == "bhtd":
+            return torch.randn(B, heads, T, d, generator=gen, device="cuda").to(dtype)
+        # the model's (B, T, H, d) activations, viewed as (B, H, T, d)
+        return torch.randn(B, T, heads, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+
+    q, k, v = make(H, Tq), make(KV, Tk), make(KV, Tk)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len,
+              mixed=mixed)
+    before = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    assert flash_attention_fwd.launches == before + 1
+    assert o.stride() == q.stride()           # o comes back in q's layout
+    ro, rl = attention_fwd_ref(q, k, v, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=tol, rtol=0)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+
+
+def test_flash_rows_without_live_keys_are_zero(gen):
+    q = torch.randn(1, 2, 48, 32, generator=gen, device="cuda")
+    k = torch.randn(1, 2, 48, 32, generator=gen, device="cuda")
+    o, lse = flash_attention_fwd(q, k, k, scale=0.2, window=4, kv_len=30)
+    dead = torch.arange(48, device="cuda") - 4 + 1 > 29      # window starts past kv_len
+    assert dead.any()
+    assert (o[:, :, dead] == 0).all() and (lse[:, :, dead] == 0).all()
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "fp16", "last_dim_stride"])
+def test_flash_kernel_rejects_what_it_does_not_take(gen, bad):
+    d = 48 if bad == "head_dim" else 32
+    q = torch.randn(1, 2, 8, d, generator=gen, device="cuda")
+    if bad == "fp16":
+        q = q.half()
+    if bad == "last_dim_stride":
+        q = torch.randn(1, 2, 8, 2 * d, generator=gen, device="cuda")[..., ::2]
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention_fwd(q, q, q, scale=1.0)
+
+
+def _perturb_norms(tree, gen):
+    """Every norm scale set to 1 + 0.1 * N(0, 1) (init sets them to one)."""
+    return {k: (1.0 + 0.1 * torch.randn(v.shape, generator=gen, dtype=v.dtype)
+                if k == "scale" else _perturb_norms(v, gen) if isinstance(v, dict) else v)
+            for k, v in tree.items()}
+
+
+def test_infserver_on_cuda_matches_cpu(gen):
+    """Single and grouped flushes on the card give the CPU's values at fp32
+    compute (the kernels against the plain versions, end to end). The two
+    models' norm scales differ, so the grouped flush must use each model's
+    own weight row."""
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), compute_dtype="float32")
+    cpu = torch.Generator().manual_seed(0)
+    theta, phi = (_perturb_norms(init_params(cpu, cfg), cpu) for _ in range(2))
+    servers = {}
+    for dev in ("cpu", "cuda"):
+        to = lambda t: tree_map(lambda a: a.to(dev), t)
+        s = InfServer(cfg, 6, to(theta), device=dev, max_batch=64)
+        s.register_model("phi", to(phi))
+        servers[dev] = s
+    obs = np.random.default_rng(0).integers(0, 512, (12, 26)).astype(np.int32)
+    vals = {}
+    for dev, s in servers.items():
+        single = s.get(s.submit(obs))[2]
+        tt, tp = s.submit(obs), s.submit(obs[:5], model="phi")
+        s.flush()
+        vals[dev] = (single, s.get(tt)[2], s.get(tp)[2])
+    for a, b in zip(vals["cpu"], vals["cuda"]):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=0)
+    st = servers["cuda"].stats()["dispatch"]
+    assert st.get("attention|kernel", 0) > 0
+    pol = make_obs_policy(cfg, 6)
+    lg, _ = pol.logits_values(tree_map(lambda a: a.cuda(), theta),
+                              torch.from_numpy(obs).long().cuda())
+    assert lg.is_cuda and lg.shape == (12, 6)

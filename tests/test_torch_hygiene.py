@@ -1,0 +1,100 @@
+"""The port's boundaries: no JAX in it, CUDA by default, kernels from source.
+
+- No module of `repro_torch`, and none of `chip_smoke.py`,
+  `tools/profile_infserver.py` and `tests/test_torch_cuda.py` (which runs
+  on the card's machine, where there is no jax), imports jax or the JAX
+  package `repro` (an AST walk, and a fresh interpreter that imports the
+  whole port and finds no jax in `sys.modules`).
+- Entry points default to CUDA and raise where there is none.
+- The kernel build raises without nvcc: there is no prebuilt fallback.
+- chip_smoke.py fails, printing no result, without a card.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.infserver import InfServer
+from repro_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tools" / "profile_infserver.py",
+                                          ROOT / "tests" / "test_torch_cuda.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
+           for f in files}
+    assert {f: m for f, m in bad.items() if m} == {}
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import pkgutil, importlib, sys, repro_torch\n"
+            "import repro_torch.infserver\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert not any(n == 'repro' or n.startswith('repro.') for n in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_infserver_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("tleague-policy-s")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InfServer(cfg, 6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InfServer(cfg, 6, device="cuda")
+    assert InfServer(cfg, 6, device="cpu").device.type == "cpu"
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "CUDA_DEFAULT", tmp_path / "no-nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_key_covers_every_source():
+    names = {p.name for p in _build.sources()}
+    assert {"rmsnorm.cu", "flash_fwd.cu"} <= names
+    assert set(_build.SIGNATURES) == {"rmsnorm_fwd", "flash_fwd"}
+    assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """No card: exit non-zero and print no result, in the checkout and in a
+    directory holding chip_smoke.py alone."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for where in (ROOT, tmp_path):
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=where, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0 and r.stdout == "", (where, r.stdout, r.stderr)
