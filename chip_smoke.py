@@ -3,12 +3,26 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc`, holds
-each against its plain PyTorch version at the serving shapes, serves the
-league's policy nets (tleague-policy-s, tleague-policy-m) through the
-InfServer on the card, and checks the card's forward against the port's CPU
-forward. Phases print one JSON line each; any failed check raises and the
-script exits non-zero. The last line is
+Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` and
+drives the port's two paths on the card:
+
+- serving: holds the forward kernels (RMSNorm, flash-attention forward)
+  against their plain PyTorch versions at the serving shapes, serves the
+  league's policy nets (tleague-policy-s, tleague-policy-m) through the
+  InfServer, and checks the card's forward against the port's CPU forward;
+- learning: holds the learner's kernels (the three flash-attention backward
+  kernels and the reverse scan, forward and closed-form backward) against
+  their plain versions at the train steps' shapes, runs 10 env train steps
+  (tleague-policy-s, PPO + GAE, 32 x 16 rows of 26-token observations, bf16
+  compute) and 3 sequence train steps (V-trace over 4096 tokens, window
+  512, softcap 30, fp32, remat), and checks step 1 on the card against the
+  port's CPU step at fp32 compute.
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after; a kernel of the path that was never launched fails the
+run. Phases print one JSON line each; any failed check raises and the
+script exits non-zero. The line before the last lists every kernel with its
+time, bound and launches; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device it exits with code 2 and prints no result.
 
@@ -26,6 +40,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -37,6 +53,27 @@ OBS_LEN = 26                       # pommerman_lite: 5x5 view + 1 token
 ROWS = 256                         # one full flush at max_batch=256
 TOL = {"float32": {"rmsnorm": 2e-5, "attention": 1e-4}, "bfloat16": 2e-2}
 CARD_VS_CPU_TOL = 1e-4
+# backward kernels: of max(1, max |plain|), so long sums are held relative
+# to their size; bf16 outputs round once
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SCAN_TOL = 1e-5                    # of max |y|: the kernel reassociates the recurrence
+ENV_B, ENV_T = 32, 16              # 16 envs x team_size 2, unroll 16 (launch/train.py)
+SEQ_T = 4096                       # benchmarks/run.py's sequence-scale learner shape
+ENV_STEPS, SEQ_STEPS = 10, 3
+SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/kernel.py:25"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:101"),
+    "flash_attention_bwd_preprocess": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                                       "src/repro/kernels/flash_attention/kernel.py:204"),
+    "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                               "src/repro/kernels/flash_attention/kernel.py:254"),
+    "flash_attention_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                                "src/repro/kernels/flash_attention/kernel.py:323"),
+    "reverse_discounted_scan_p": ("src/repro_torch/kernels/csrc/reverse_scan.cu",
+                                  "src/repro/kernels/vtrace_scan/kernel.py:36"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -63,9 +100,60 @@ def ptxas_summary(log: str):
     return out
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in fp32."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / max(1.0, want.abs().max().item())).item()
+
+
+def seq_config(get_arch):
+    """tleague-policy-s as benchmarks/run.py trains it at sequence scale:
+    every layer local with window 512, softcap 30, fp32 compute."""
+    return dataclasses.replace(get_arch("tleague-policy-s"), sliding_window=512,
+                               attn_logit_softcap=30.0, layer_pattern=("local",),
+                               compute_dtype="float32", max_position=8192)
+
+
+def env_batch(rng, B, T, dev):
+    """One on-policy segment: B rows of T steps of 26-token observations."""
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in {
+        "obs": rng.integers(0, 16, (B, T, OBS_LEN)).astype(np.int64),
+        "actions": rng.integers(0, NUM_ACTIONS, (B, T)).astype(np.int64),
+        "behavior_logp": (-np.abs(rng.normal(size=(B, T))) - 1.0).astype(np.float32),
+        "behavior_values": rng.normal(size=(B, T)).astype(np.float32),
+        "rewards": rng.normal(size=(B, T)).astype(np.float32),
+        "done": rng.random((B, T)) < 0.05,
+        "bootstrap_value": rng.normal(size=(B,)).astype(np.float32)}.items()}
+
+
+def seq_batch(rng, T, vocab, dev):
+    """One T-token trajectory whose actions are tokens (V-trace)."""
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in {
+        "tokens": rng.integers(0, vocab, (1, T)).astype(np.int64),
+        "actions": rng.integers(0, vocab, (1, T)).astype(np.int64),
+        "behavior_logp": (-np.abs(rng.normal(size=(1, T))) - 6.0).astype(np.float32),
+        "behavior_values": rng.normal(size=(1, T)).astype(np.float32),
+        "rewards": rng.normal(size=(1, T)).astype(np.float32),
+        "discounts": (0.99 * (rng.random((1, T)) >= 0.01)).astype(np.float32),
+        "bootstrap_value": rng.normal(size=(1,)).astype(np.float32)}.items()}
+
+
+def with_grads(opt):
+    """`opt` that also returns the grads it was fed, among its metrics."""
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params):
+        p, st, m = opt.update(grads, state, params)
+        return p, st, {**m, "grads": grads}
+    return Optimizer(opt.init, update)
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -82,9 +170,24 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.models import init_params
-    from repro_torch.utils import tree_map, tree_stack
-
-    import numpy as np
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_preprocess,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_grads_ref,
+        attention_bwd_preprocess_ref,
+        attention_bwd_ref,
+    )
+    from repro_torch.kernels.vtrace_scan.ops import (
+        reverse_discounted_scan,
+        reverse_discounted_scan_p,
+    )
+    from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
+    from repro_torch.learners import build_env_train_step, build_seq_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree_leaves, tree_map, tree_stack
 
     # -- 1. device ----------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -164,10 +267,11 @@ def main() -> int:
         results["rmsnorm"].append(r)
         emit("kernel", name="rmsnorm", **r)
 
-    def live_pairs(Tq, Tk, causal, window):
+    def live_pairs(Tq, Tk, causal, window, kv_len=None):
         qp = torch.arange(Tq, device=dev)[:, None]
         kp = torch.arange(Tk, device=dev)[None, :]
-        mask = torch.ones(Tq, Tk, dtype=torch.bool, device=dev)
+        mask = (kp < (Tk if kv_len is None else kv_len)) & torch.ones(
+            Tq, Tk, dtype=torch.bool, device=dev)
         if causal:
             mask &= kp <= qp
         if window:
@@ -249,8 +353,136 @@ def main() -> int:
         check(err <= tol, f"edge case {label}: err {err} > {tol}")
     emit("kernel_edges", max_abs_err={k: e for k, (e, _) in edge.items()})
 
+    # -- 3b. the learner's kernels against their plain versions ---------------
+    for name in ("flash_attention_bwd_preprocess", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "reverse_discounted_scan_p"):
+        results[name] = []
+    bwd_cases = [
+        # B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, layout, label
+        (ENV_B * ENV_T, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, True, 0, 0.0, None,
+         "bthd", "learner env shape"),
+        (1, 4, 2, SEQ_T, SEQ_T, 32, torch.float32, True, 512, 30.0, None, "bhtd",
+         "learner seq shape"),
+        (3, 2, 2, 37, 37, 64, torch.float32, True, 0, 0.0, None, "bthd", "odd T, G=1"),
+        (2, 4, 2, 37, 37, 128, torch.float32, True, 5, 20.0, None, "bhtd",
+         "odd T, G=2, window, cap"),
+        (2, 8, 2, 37, 37, 256, torch.float32, True, 0, 0.0, None, "bthd", "odd T, G=4"),
+        (2, 4, 1, 50, 50, 32, torch.bfloat16, True, 8, 0.0, None, "bhtd", "bf16, G=4, window"),
+        (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40, "bthd",
+         "tail, rows with no live key"),
+        (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None, "bthd", "bidirectional, Tq != Tk"),
+    ]
+    for (B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, layout, label) in bwd_cases:
+        def make(heads, T):
+            if layout == "bhtd":
+                return torch.randn(B, heads, T, d, generator=gen, device=dev).to(dtype)
+            return torch.randn(B, T, heads, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+
+        q, k, v, do = make(H, Tq), make(KV, Tk), make(KV, Tk), make(H, Tq)
+        kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+
+        def backward():
+            delta = flash_attention_bwd_preprocess(o, do)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            return (delta, dq) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+        got = backward()
+        plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        tol = BWD_TOL[dname[dtype]]
+        errs = {n: rel_err(a, b) for n, a, b in zip(("delta", "dq", "dk", "dv"), got, plain)}
+        for n, e in errs.items():
+            t = BWD_TOL["float32"] if n == "delta" else tol
+            check(e <= t, f"flash backward {label}: {n} err {e} > {t}")
+        check(all(bool(torch.isfinite(t.float()).all()) for t in got),
+              f"flash backward {label}: non-finite grads")
+        check(got[1].stride() == q.stride() and got[2].stride() == k.stride()
+              and got[3].stride() == v.stride(), f"flash backward {label}: grads not in the inputs' layout")
+        again = backward()                    # no atomics: bitwise deterministic
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash backward {label}: two identical calls differ")
+        delta = got[0]
+        esz = q.element_size()
+        live = live_pairs(Tq, Tk, causal, window, kv_len)
+        io = {"flash_attention_bwd_preprocess": (2 * o.numel() * esz + delta.numel() * 4,
+                                                 2 * d * B * H * Tq),
+              "flash_attention_bwd_dq": ((2 * q.numel() + k.numel() + v.numel() + do.numel()) * esz
+                                         + 2 * lse.numel() * 4, 6 * d * B * H * live),
+              "flash_attention_bwd_dkv": ((q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel())
+                                          * esz + 2 * lse.numel() * 4, 8 * d * B * H * live)}
+        calls = {"flash_attention_bwd_preprocess": (
+                     lambda: flash_attention_bwd_preprocess(o, do),
+                     lambda: attention_bwd_preprocess_ref(o, do),
+                     lambda: torch.einsum("bhtd,bhtd->bht", o, do)),
+                 "flash_attention_bwd_dq": (
+                     lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                     lambda: attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw), None),
+                 "flash_attention_bwd_dkv": (
+                     lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                     lambda: attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw), None)}
+        sdpa_ms = None
+        if causal and not window and not cap and kv_len is None and Tq == Tk:
+            # the library's whole backward (dq, dk and dv in one call)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=d ** -0.5,
+                                                enable_gqa=True)
+            sdpa_ms = device_ms(lambda: torch.autograd.grad(ol, (qs, ks, vs), do,
+                                                            retain_graph=True))
+        # errors relative to max(1, max |plain|): delta, dq, max of dk and dv
+        err_of = {"flash_attention_bwd_preprocess": errs["delta"],
+                  "flash_attention_bwd_dq": errs["dq"],
+                  "flash_attention_bwd_dkv": max(errs["dk"], errs["dv"])}
+        tol_of = {"flash_attention_bwd_preprocess": BWD_TOL["float32"],
+                  "flash_attention_bwd_dq": tol, "flash_attention_bwd_dkv": tol}
+        for name, (kernel_fn, plain_fn, library_fn) in calls.items():
+            nbytes, flops = io[name]
+            b_ms, b_by = bound(nbytes, flops, dname[dtype])
+            library_ms = device_ms(library_fn) if library_fn else sdpa_ms
+            r = dict(shape=[B, H, KV, Tq, Tk, d], strided=layout == "bthd",
+                     dtype=dname[dtype], window=window, cap=cap, kv_len=kv_len,
+                     label=label, max_abs_err=err_of[name], tol=tol_of[name],
+                     ms=device_ms(kernel_fn), plain_ms=device_ms(plain_fn),
+                     library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            results[name].append(r)
+            emit("kernel", name=name, **r)
+
+    scan_cases = [(ENV_B, ENV_T, torch.float32, "GAE, env step"),
+                  (1, SEQ_T, torch.float32, "V-trace, seq step"),
+                  (13, 100, torch.float32, "odd"), (4, 40, torch.bfloat16, "bf16 inputs")]
+    for (B, T, dtype, label) in scan_cases:
+        deltas = torch.randn(B, T, generator=gen, device=dev).to(dtype)
+        decays = (0.99 * torch.rand(B, T, generator=gen, device=dev)).to(dtype)
+        init = torch.randn(B, generator=gen, device=dev)
+        y = reverse_discounted_scan_p(deltas, decays, init)
+        ry = reverse_discounted_scan_ref(deltas, decays, init)
+        fwd_err = ((y - ry).abs().max() / ry.abs().max()).item()
+        check(fwd_err <= SCAN_TOL, f"scan {label}: err {fwd_err} of max |y| > {SCAN_TOL}")
+        check(torch.equal(y, reverse_discounted_scan_p(deltas, decays, init)),
+              f"scan {label}: two identical calls differ")
+        # the closed-form backward (the kernel on flipped arrays) against
+        # autograd through the plain loop
+        g = torch.randn(B, T, generator=gen, device=dev)
+        leaves = [t.detach().requires_grad_() for t in (deltas, decays, init)]
+        gk = torch.autograd.grad((reverse_discounted_scan(*leaves) * g).sum(), leaves)
+        gr = torch.autograd.grad((reverse_discounted_scan_ref(*leaves) * g).sum(), leaves)
+        gtol = SCAN_TOL if dtype == torch.float32 else TOL["bfloat16"]
+        bwd_err = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp(min=1e-30)).item() for a, b in zip(gk, gr))
+        check(bwd_err <= gtol, f"scan {label}: backward err {bwd_err} > {gtol}")
+        nbytes = 2 * deltas.numel() * deltas.element_size() + init.numel() * 4 + y.numel() * 4
+        b_ms, b_by = bound(nbytes, 2 * B * T, "float32")
+        r = dict(shape=[B, T], dtype=dname[dtype], label=label, max_abs_err=fwd_err,
+                 bwd_err=bwd_err, tol=SCAN_TOL,
+                 ms=device_ms(lambda: reverse_discounted_scan_p(deltas, decays, init)),
+                 plain_ms=device_ms(lambda: reverse_discounted_scan_ref(deltas, decays, init)),
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        results["reverse_discounted_scan_p"].append(r)
+        emit("kernel", name="reverse_discounted_scan_p", **r)
+
     # -- 4. serve the policy nets through the InfServer -----------------------
-    counters = (rmsnorm, flash_attention_fwd)
+    counters = (rmsnorm, flash_attention_fwd, flash_attention_bwd_preprocess,
+                flash_attention_bwd_dq, flash_attention_bwd_dkv, reverse_discounted_scan_p)
+    serve_kernels = ("rmsnorm", "flash_attention_fwd")
     serve = {}
     for c in counters:
         c.launches = 0
@@ -332,9 +564,9 @@ def main() -> int:
         emit("serve", arch=arch, rows_per_flush=ROWS, obs_len=OBS_LEN,
              launches_per_flush=per_flush, **stats,
              occupancy=server.stats()["occupancy"], batches_run=server.batches_run)
-    launches = {c.__name__: c.launches for c in counters}
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+    launches = {"serve": {c.__name__: c.launches for c in counters}}
+    for name in serve_kernels:
+        check(launches["serve"][name] > 0, f"{name} was never launched on the serving path")
 
     # -- 5. card vs CPU at fp32 compute ----------------------------------------
     def perturb_norms(tree, gen):
@@ -372,25 +604,115 @@ def main() -> int:
         emit("card_vs_cpu", arch=arch, compute_dtype="float32", max_abs_err=errs,
              tol=CARD_VS_CPU_TOL)
 
-    # -- 6. summary --------------------------------------------------------------
-    sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                           "src/repro/kernels/rmsnorm/kernel.py:25"),
-               "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
-                                       "src/repro/kernels/flash_attention/kernel.py:101")}
+    # -- 6. train: env steps and sequence steps on the card ---------------------
+    # Per step, forward: 2 RMSNorms per layer and the final one, 1 attention
+    # per layer; backward: 1 preprocess, dq and dk/dv per layer; 1 scan (GAE
+    # or V-trace; its backward is not on the path: the targets are detached).
+    # remat runs each unit's forward again in the backward.
+    cfg_env = get_arch("tleague-policy-s")
+    cfg_seq = seq_config(get_arch)
+    L = cfg_env.num_layers
+    per_step = {
+        "env": {"rmsnorm": 2 * L + 1, "flash_attention_fwd": L,
+                "flash_attention_bwd_preprocess": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1},
+        "seq": {"rmsnorm": 4 * L + 1, "flash_attention_fwd": 2 * L,
+                "flash_attention_bwd_preprocess": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1}}
+    train = {}
+    for c in counters:
+        c.launches = 0
+    dispatch.stats(reset=True)
+    learn_rng = np.random.default_rng(4)
+    for which, cfg, n_steps in (("env", cfg_env, ENV_STEPS), ("seq", cfg_seq, SEQ_STEPS)):
+        opt = adamw(3e-4, clip_norm=1.0)
+        if which == "env":
+            step = build_env_train_step(cfg, NUM_ACTIONS, opt)
+            batch = env_batch(learn_rng, ENV_B, ENV_T, dev)
+        else:
+            step = build_seq_train_step(cfg, opt, loss="vtrace", remat=True)
+            batch = seq_batch(learn_rng, SEQ_T, cfg.vocab_size, dev)
+        params = init_params(torch.Generator(device=dev).manual_seed(5), cfg)
+        state = opt.init(params)
+        first = tree_map(torch.clone, params)
+        before = {c.__name__: c.launches for c in counters}
+        times, losses = [], []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+        check(all(np.isfinite(losses)), f"{which} step: non-finite loss {losses}")
+        check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)),
+              f"{which} step: non-finite params")
+        check(any(not torch.equal(a, b) for a, b in zip(tree_leaves(params), tree_leaves(first))),
+              f"{which} step: params unchanged")
+        for c in counters:
+            n = c.launches - before[c.__name__]
+            want = n_steps * per_step[which][c.__name__]
+            check(n == want, f"{which} step: {c.__name__} launched {n} times, want {want}")
+        train[which] = {"median_step_ms": 1e3 * statistics.median(times),
+                       "step_ms": [round(1e3 * t, 3) for t in times], "losses": losses,
+                       "metrics": {k: v.item() for k, v in metrics.items()}}
+        emit("train", kind=which, arch=cfg.name, steps=n_steps,
+             batch=[ENV_B, ENV_T, OBS_LEN] if which == "env" else [1, SEQ_T],
+             compute_dtype=cfg.compute_dtype, launches_per_step=per_step[which], **train[which])
+    launches["train"] = {c.__name__: c.launches for c in counters}
+    for name, n in launches["train"].items():
+        check(n > 0, f"{name} was never launched on the learner path")
+    st = dispatch.stats()
+    for op in ("attention", "rmsnorm", "reverse_scan"):
+        check(st.get(f"{op}|kernel", 0) > 0, f"learner path: {op} not on the kernel tier")
+    check(not any("|reference" in key for key in st),
+          f"learner path: plain versions ran on the card: {st}")
+    emit("train_dispatch", stats=st)
+
+    # -- 7. train step 1 on the card against the port's CPU step (fp32) --------
+    learn_vs_cpu = {}
+    for which, cfg in (("env", dataclasses.replace(cfg_env, compute_dtype="float32")),
+                      ("seq", cfg_seq)):
+        opt = with_grads(adamw(3e-4, clip_norm=1.0))
+        if which == "env":
+            step = build_env_train_step(cfg, NUM_ACTIONS, opt)
+            batch = env_batch(learn_rng, ENV_B, ENV_T, "cpu")
+        else:
+            step = build_seq_train_step(cfg, opt, loss="vtrace", remat=True)
+            batch = seq_batch(learn_rng, SEQ_T, cfg.vocab_size, "cpu")
+        params = init_params(torch.Generator().manual_seed(6), cfg)
+        to_dev = lambda t: tree_map(lambda a: a.to(dev), t)
+        _, _, m_cpu = step(params, opt.init(params), batch)
+        _, _, m_dev = step(to_dev(params), opt.init(to_dev(params)), to_dev(batch))
+        errs = {"loss": abs(m_dev["loss"].item() - m_cpu["loss"].item()),
+                "grads": max((a.cpu() - b).abs().max().item() for a, b in
+                             zip(tree_leaves(m_dev["grads"]), tree_leaves(m_cpu["grads"])))}
+        learn_vs_cpu[which] = max(errs.values())
+        for name, e in errs.items():
+            check(e <= CARD_VS_CPU_TOL, f"{which} step card vs CPU ({name}): {e} > {CARD_VS_CPU_TOL}")
+        emit("train_card_vs_cpu", kind=which, compute_dtype="float32", max_abs_err=errs,
+             tol=CARD_VS_CPU_TOL)
+
+    # -- 8. summary --------------------------------------------------------------
     kernels = []
-    for name, (src, replaces) in sources.items():
-        head = results[name][0]               # the policy-s serving shape
+    for name, (src, replaces) in SOURCES.items():
+        head = results[name][0]   # the policy-s serving shape; the env step's for the learner's
+        by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": max(r["max_abs_err"] for r in results[name]),
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                         "library_ms": head["library_ms"], "shape": head["shape"],
                         "dtype": head["dtype"]})
     # a short digest first, so a log that keeps only the tail still has it:
-    # serve is [median flush ms, rows/s] per flush kind at 256 rows
+    # serve is [median flush ms, rows/s] per flush kind at 256 rows; train is
+    # the median step ms
     emit("summary", card=smi, build_s=round(build_s, 2), nvcc_s=_build.build_seconds,
-         serve=serve, card_vs_cpu_max_err=card_vs_cpu)
+         serve=serve, card_vs_cpu_max_err=card_vs_cpu,
+         train={k: round(v["median_step_ms"], 3) for k, v in train.items()},
+         train_card_vs_cpu_max_err=learn_vs_cpu, seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,9 +1,13 @@
-"""Hand-written Hopper kernels for the serving hot spots, each beside its
-plain PyTorch version (`ref.py`):
+"""Hand-written Hopper kernels for the serving and learner hot spots, each
+beside its plain PyTorch version (`ref.py`):
 
   flash_attention - fused online-softmax attention forward, GQA, causal +
-                    sliding-window + logit-softcap aware (csrc/flash_fwd.cu).
+                    sliding-window + logit-softcap aware (csrc/flash_fwd.cu),
+                    and its FlashAttention-2 backward: delta preprocess, dq
+                    and dk/dv (csrc/flash_bwd.cu).
   rmsnorm         - fused RMS normalization (csrc/rmsnorm.cu).
+  vtrace_scan     - reverse discounted scan behind GAE and V-trace
+                    (csrc/reverse_scan.cu), with its closed-form gradient.
 
 `repro_torch.kernels.dispatch` is the entry point models/ call: CUDA
 tensors launch the kernels, CPU tensors run the plain versions. The
@@ -12,3 +16,4 @@ kernels are built from `csrc/` by `_build` at first use.
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.vtrace_scan.ops import reverse_discounted_scan

@@ -1,4 +1,5 @@
-"""Kernel dispatch: route the model's hot ops to their CUDA kernels.
+"""Kernel dispatch: route the model's and the learner's hot ops to their
+CUDA kernels.
 
 Counterpart of `repro.kernels.dispatch`. One chokepoint counts, per call,
 which tier an op runs as:
@@ -20,7 +21,14 @@ picks it up.
 
 Every call is counted: ``stats()`` returns ``{"op|tier|detail": count}``.
 The port runs eagerly, so these are per-call counts, one per executed op;
-`repro` counts per trace, once per compilation.
+`repro` counts per trace, once per compilation. A forward that
+`torch.utils.checkpoint` recomputes in the backward (`remat=True`) is
+counted again.
+
+All three ops are differentiable on both devices: attention's backward is
+the flash backward kernels (`flash_attention/ops.py`), rmsnorm's is
+autograd through its plain version, and reverse_scan's is the same scan
+kernel on flipped arrays (`vtrace_scan/ops.py`).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention as _flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm
+from repro_torch.kernels.vtrace_scan.ops import reverse_discounted_scan as _reverse_scan
 
 INFER_MODES = ("bf16",)
 
@@ -121,3 +130,11 @@ def attention(q, k, v, *, scale, causal=True, window=0, cap=0.0):
     o = _flash_attention(q.to(bf), k.to(bf), v.to(bf), scale=scale,
                          causal=causal, window=window, cap=cap, mixed=True)
     return o.to(q.dtype)
+
+
+def reverse_scan(deltas, decays, init=None):
+    """y_t = delta_t + decay_t * y_{t+1}, y_T = init (zeros if None).
+    (B, T) -> (B, T) fp32: the one primitive behind GAE, TD(lambda),
+    discounted returns and the V-trace correction sum."""
+    note("reverse_scan", resolve(deltas))
+    return _reverse_scan(deltas, decays, init)

@@ -1,22 +1,31 @@
-"""Flash-attention forward wrapper: the CUDA kernel for CUDA tensors, the
-plain version for CPU tensors.
+"""Flash-attention wrappers: the CUDA kernels for CUDA tensors, the plain
+versions for CPU tensors, and `flash_attention`, differentiable.
 
-Replaces `repro.kernels.flash_attention.kernel.flash_attention_fwd`
-(`_flash_kernel`); the kernel is `csrc/flash_fwd.cu`, whose header says
-what bounds it and how it is laid out. Unlike `repro`'s `ops.py`, nothing
-is padded to a block multiple: the kernel masks its own ragged edge. q, k
-and v may be strided views (the model passes (B, T, H, d) activations
-transposed to (B, H, T, d)) as long as the head dim is contiguous; o comes
-back in q's memory layout. Forward only: the backward kernels are a later
-slice. `flash_attention_fwd.launches` counts kernel launches and nothing
-else.
+Replaces `repro.kernels.flash_attention.kernel`'s four kernels:
+`flash_attention_fwd` (`_flash_kernel`, here `csrc/flash_fwd.cu`) and
+the FlashAttention-2 backward `flash_attention_bwd_preprocess`,
+`flash_attention_bwd_dq` and `flash_attention_bwd_dkv` (`csrc/flash_bwd.cu`).
+The kernels' headers say what bounds them and how they are laid out.
+Unlike `repro`'s `ops.py`, nothing is padded to a block multiple: the
+kernels mask their own ragged edge. q, k, v, o and dO may be strided views
+(the model passes (B, T, H, d) activations transposed to (B, H, T, d)) as
+long as the head dim is contiguous; o and dq come back in q's memory
+layout, dk and dv in k's and v's. The dk/dv kernel writes one gradient per
+KV head, so `repro`'s per-query-head buffers and group sum (`ops.py:96-100`)
+have no counterpart. Each wrapper's `.launches` counts its kernel's
+launches and nothing else.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_grads_ref,
+    attention_bwd_preprocess_ref,
+    attention_bwd_ref,
+    attention_fwd_ref,
+)
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128, 256)
@@ -39,6 +48,29 @@ def _check(q, k, v, mixed):
         raise ValueError("flash attention: q, k, v on different devices")
 
 
+def _strides(*ts):
+    """(batch, head, time) strides of each tensor, checked for the kernels'
+    contiguous head dim and 32-bit indexing."""
+    out = []
+    for t in ts:
+        if t.stride(3) != 1:
+            raise ValueError("flash attention kernel needs a contiguous head dim")
+        if sum((n - 1) * s for n, s in zip(t.shape, t.stride())) > _INT_MAX:
+            raise ValueError("flash attention kernel indexes with 32-bit strides")
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return out
+
+
+def _check_kernel(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash attention kernel takes {DTYPES}, got {q.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[3]}")
+
+
 def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                         kv_len=None, mixed=False):
     """q: (B, H, Tq, d); k, v: (B, KV, Tk, d). Returns (o (B, H, Tq, d) in
@@ -50,23 +82,12 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
         return attention_fwd_ref(q, k, v, scale=scale, causal=causal,
                                  window=window, cap=cap, kv_len=kv_len,
                                  mixed=mixed)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {q.device}")
+    _check_kernel(q)
     B, H, Tq, d = q.shape
     KV, Tk = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash attention kernel takes {DTYPES}, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    strides = []
-    for t in (q, k, v, o):
-        if t.stride(3) != 1:
-            raise ValueError("flash attention kernel needs a contiguous head dim")
-        if sum((n - 1) * s for n, s in zip(t.shape, t.stride())) > _INT_MAX:
-            raise ValueError("flash attention kernel indexes with 32-bit strides")
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    strides = _strides(q, k, v, o)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -82,9 +103,129 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
 flash_attention_fwd.launches = 0
 
 
+# -- backward ---------------------------------------------------------------------
+
+def flash_attention_bwd_preprocess(o, do):
+    """delta = rowsum(dO * O): (B, H, Tq) fp32. o and dO: (B, H, Tq, d) in
+    q's dtype, o as the forward stored it."""
+    if o.shape != do.shape or o.dtype != do.dtype or o.device != do.device:
+        raise ValueError(f"flash preprocess: o {tuple(o.shape)} {o.dtype} and dO "
+                         f"{tuple(do.shape)} {do.dtype} differ")
+    if o.device.type == "cpu":
+        return attention_bwd_preprocess_ref(o, do)
+    _check_kernel(o)
+    B, H, Tq, d = o.shape
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=o.device)
+    lib = _build.library()
+    err = lib.flash_bwd_preprocess(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                   B, H, Tq, d, *_strides(o, do),
+                                   int(o.dtype == torch.bfloat16),
+                                   torch.cuda.current_stream(o.device).cuda_stream)
+    _build.check(err, "flash_bwd_preprocess")
+    flash_attention_bwd_preprocess.launches += 1
+    return delta
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    _check(q, k, v, False)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash backward: dO {tuple(do.shape)} {do.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"flash backward: {name} must be (B, H, Tq) fp32 on q's device")
+    if q.device.type != "cpu":
+        _check_kernel(q)
+    return lse.contiguous(), delta.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale, causal=True,
+                           window=0, cap=0.0, kv_len=None):
+    """dq (B, H, Tq, d) in q's dtype and layout, accumulated in fp32 over the
+    live KV tiles."""
+    lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[0]
+    B, H, Tq, d = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
+    lib = _build.library()
+    err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                           B, H, KV, Tq, Tk, d, *_strides(q, k, v, do, dq),
+                           float(scale), int(causal), int(window), float(cap or 0.0),
+                           kv_len, int(q.dtype == torch.bfloat16),
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
+                            window=0, cap=0.0, kv_len=None):
+    """(dk, dv), each (B, KV, Tk, d) in k's dtype and layout: the sum over
+    each KV head's G query heads, accumulated in fp32 in one block."""
+    lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[1:]
+    B, H, Tq, d = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
+    lib = _build.library()
+    err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            B, H, KV, Tq, Tk, d, *_strides(q, k, v, do, dk, dv),
+                            float(scale), int(causal), int(window), float(cap or 0.0),
+                            kv_len, int(q.dtype == torch.bfloat16),
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (flash_attention_bwd_preprocess, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _fn.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale, causal=True, window=0,
+                        cap=0.0, kv_len=None):
+    """(dq, dk, dv) of attention from the forward's o and lse: the three
+    kernels on CUDA, `attention_bwd_ref` on the CPU."""
+    kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, **kw)[1:]
+    delta = flash_attention_bwd_preprocess(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq,) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the forward kernel, saving (q, k, v, o, lse). Backward: the
+    three backward kernels, recomputing in fp32 (also after a `mixed`
+    forward, as `repro`'s backward does)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, cap, kv_len, mixed):
+        o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal, window=window,
+                                     cap=cap, kv_len=kv_len, mixed=mixed)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        return flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw) + (None,) * 6
+
+
 def flash_attention(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                     kv_len=None, mixed=False):
-    """`flash_attention_fwd` without the lse: (B, H, Tq, d)."""
-    return flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                               window=window, cap=cap, kv_len=kv_len,
-                               mixed=mixed)[0]
+    """Differentiable attention: (B, H, Tq, d), like `flash_attention_fwd`
+    without the lse."""
+    return _FlashAttention.apply(q, k, v, scale, causal, window, cap, kv_len, mixed)

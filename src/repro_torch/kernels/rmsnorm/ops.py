@@ -1,10 +1,14 @@
 """RMSNorm wrapper: the CUDA kernel for CUDA tensors, the plain version for
-CPU tensors.
+CPU tensors; differentiable.
 
 Replaces `repro.kernels.rmsnorm.kernel.rmsnorm_p` (`_rmsnorm_kernel`); the
 kernel is `csrc/rmsnorm.cu`, whose header says what bounds it and how it is
 laid out. There is no padding to a block multiple: the kernel masks its own
 ragged edge. `rmsnorm.launches` counts kernel launches and nothing else.
+
+The backward is autograd through `rmsnorm_ref` on the saved x and w, as
+`repro/kernels/rmsnorm/ops.py:36-39` differentiates its reference: the
+TPU backward is no Pallas kernel, so none is ported.
 """
 from __future__ import annotations
 
@@ -16,11 +20,7 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * w over the last axis, in x's dtype.
-
-    x: (..., d); w: (d,), or (M, d) with x.shape[0] == M (one weight row
-    per model)."""
+def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     d = x.shape[-1]
     if w.dim() not in (1, 2) or w.shape[-1] != d:
         raise ValueError(f"rmsnorm: weight {tuple(w.shape)} does not match d={d}")
@@ -50,6 +50,33 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     _build.check(err, "rmsnorm_fwd")
     rmsnorm.launches += 1
     return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x = x.detach().requires_grad_(ctx.needs_input_grad[0])
+        w = w.detach().requires_grad_(ctx.needs_input_grad[1])
+        inputs = [t for t in (x, w) if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(rmsnorm_ref(x, w, ctx.eps), inputs, g))
+        return (next(grads) if x.requires_grad else None,
+                next(grads) if w.requires_grad else None, None)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """y = x * rsqrt(mean(x^2) + eps) * w over the last axis, in x's dtype.
+
+    x: (..., d); w: (d,), or (M, d) with x.shape[0] == M (one weight row
+    per model)."""
+    return _RMSNorm.apply(x, w, eps)
 
 
 rmsnorm.launches = 0

@@ -9,14 +9,16 @@ model axis M (leaves (M, ...), blocks (M, R, ...)) together with tokens
 (M, B, T); outputs then carry the same leading M. This is the grouped
 theta + phi forward of the InfServer, written without `vmap`.
 
-Entry point: forward_train(params, cfg, batch) -> (logits, values, aux),
-forward only. `prefill`, `decode_step` and the other families come later.
+Entry point: forward_train(params, cfg, batch, remat=False) -> (logits,
+values, aux), differentiable: every kernel it reaches has a backward.
+`prefill`, `decode_step` and the other families come later.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import dtype_of
 from repro_torch.models import attention as A
@@ -134,16 +136,28 @@ def heads(params, cfg, x):
 # entry points
 # ===========================================================================
 
-def forward_train(params, cfg, batch):
+def forward_train(params, cfg, batch, remat=False):
     """Returns (logits (..., B, T, V) fp32, values (..., B, T) fp32, aux),
     where aux (the MoE load-balance loss in `repro`) is 0 for the dense
-    family. Forward only: the backward kernels come with the learner slice."""
+    family.
+
+    remat=True checkpoints each repeat unit with
+    `torch.utils.checkpoint` (non-reentrant), the counterpart of
+    `jax.checkpoint` around `repro`'s scanned unit: the backward keeps one
+    unit's activations at a time and runs the unit's forward again.
+    `repro`'s `q_chunk` and `unroll` have no counterpart: the attention
+    kernels tile the sequence themselves, and the loop over repeats is
+    plain Python."""
     _check_family(cfg)
     grouped = batch["tokens"].dim() == 3
     x, positions = embed_inputs(params, cfg, batch)
     for r in range(_n_repeats(cfg)):
-        x = _apply_unit_full(cfg, _index(params["blocks"], r, grouped), x,
-                             positions)
+        unit = _index(params["blocks"], r, grouped)
+        if remat:
+            x = checkpoint(lambda x, unit=unit: _apply_unit_full(cfg, unit, x, positions),
+                           x, use_reentrant=False)
+        else:
+            x = _apply_unit_full(cfg, unit, x, positions)
     logits, values = heads(params, cfg, x)
     return logits, values, torch.zeros((), device=logits.device)
 

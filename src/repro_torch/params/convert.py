@@ -5,6 +5,11 @@
 the same keys and shapes, so conversion is leaf by leaf. bfloat16 leaves
 (numpy's `ml_dtypes.bfloat16`) travel through float32, which holds every
 bf16 value exactly.
+
+Optimizer states cross the same way (`opt_state_from_reference`): `repro`'s
+`adamw` and `sgd` states are dicts of `step` (int32 scalar), the moment
+trees `mu` and `nu` (`mu` is None for sgd without momentum) and, with
+`master_fp32`, the fp32 `master` params, which is the port's layout too.
 """
 from __future__ import annotations
 
@@ -38,3 +43,17 @@ def to_reference(tree) -> dict:
     """Inverse of `from_reference`: tensors -> host numpy arrays (bf16
     leaves come back as float32)."""
     return tree_map(_to_numpy, tree)
+
+
+OPT_STATE_KEYS = {"step", "mu", "nu", "master"}
+
+
+def opt_state_from_reference(state, device) -> dict:
+    """A `repro` optimizer state (leaves as numpy arrays) -> the port's, on
+    `device`: the same keys, tensors leaf by leaf, `step` an int32 scalar."""
+    unknown = set(state) - OPT_STATE_KEYS
+    if "step" not in state or unknown:
+        raise ValueError(f"not a repro adamw/sgd state: keys {sorted(state)}")
+    out = {k: from_reference(v, device) for k, v in state.items()}
+    out["step"] = out["step"].to(torch.int32)
+    return out

@@ -8,7 +8,9 @@ card's machine, which has no jax, runs it without the JAX conftest:
 
 Tolerances: fp32 2e-5 (RMSNorm) and 1e-4 (attention: the kernel sums the
 score and p.V products in another order than the plain version's matmuls);
-bf16 2e-2.
+bf16 2e-2. The attention backward is held at 1e-4 (fp32) and 2e-2 (bf16) of
+max(1, max |plain|); the reverse scan at 1e-5 of max |y|, since it
+reassociates the recurrence.
 """
 import dataclasses
 
@@ -19,12 +21,25 @@ import torch
 from repro_torch.actors.policy import make_obs_policy
 from repro_torch.configs import get_arch
 from repro_torch.infserver import InfServer
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_preprocess,
+    flash_attention_fwd,
+)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.vtrace_scan.ops import (
+    reverse_discounted_scan,
+    reverse_discounted_scan_p,
+)
+from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
+from repro_torch.learners import build_env_train_step
 from repro_torch.models import init_params
-from repro_torch.utils import tree_map
+from repro_torch.optim import Optimizer, adamw
+from repro_torch.utils import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +168,110 @@ def test_infserver_on_cuda_matches_cpu(gen):
     lg, _ = pol.logits_values(tree_map(lambda a: a.cuda(), theta),
                               torch.from_numpy(obs).long().cuda())
     assert lg.is_cuda and lg.shape == (12, 6)
+
+
+# B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len
+FLASH_BWD = [
+    (64, 4, 2, 26, 26, 32, torch.bfloat16, True, 0, 0.0, None),     # env step, cut
+    (1, 4, 2, 1024, 1024, 32, torch.float32, True, 128, 30.0, None),  # seq step, cut
+    (3, 2, 2, 37, 37, 64, torch.float32, True, 0, 0.0, None),        # G=1
+    (2, 4, 1, 37, 37, 128, torch.float32, True, 5, 20.0, None),      # G=4, window, cap
+    (2, 8, 4, 37, 37, 256, torch.float32, True, 0, 0.0, None),       # G=2, d=256
+    (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40),         # rows with no live key
+    (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None),        # Tq != Tk
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,d,dtype,causal,window,cap,kv_len", FLASH_BWD)
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_flash_bwd_kernels_match_plain(gen, B, H, KV, Tq, Tk, d, dtype, causal, window, cap,
+                                       kv_len, layout):
+    def make(heads, T):
+        if layout == "bhtd":
+            return torch.randn(B, heads, T, d, generator=gen, device="cuda").to(dtype)
+        return torch.randn(B, T, heads, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+
+    q, k, v, do = make(H, Tq), make(KV, Tk), make(KV, Tk), make(H, Tq)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    counters = (flash_attention_bwd_preprocess, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    delta = flash_attention_bwd_preprocess(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    assert dq.stride() == q.stride() and dk.stride() == k.stride() and dv.stride() == v.stride()
+    plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, got, want, t in (("delta", delta, plain[0], 1e-4), ("dq", dq, plain[1], tol),
+                               ("dk", dk, plain[2], tol), ("dv", dv, plain[3], tol)):
+        want = want.float()
+        err = ((got.float() - want).abs().max() / max(1.0, want.abs().max().item())).item()
+        assert err <= t, (name, err)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)      # no atomics: deterministic
+
+
+def test_flash_attention_autograd_runs_the_kernels(gen):
+    q = torch.randn(2, 4, 40, 32, generator=gen, device="cuda", requires_grad=True)
+    k = torch.randn(2, 2, 40, 32, generator=gen, device="cuda", requires_grad=True)
+    before = flash_attention_bwd_dq.launches
+    o = flash_attention(q, k, k, scale=0.2, window=9, cap=25.0)
+    gq, gk = torch.autograd.grad(o.square().sum(), (q, k))
+    assert flash_attention_bwd_dq.launches == before + 1
+    qc, kc = (t.detach().cpu().requires_grad_() for t in (q, k))
+    rq, rk = torch.autograd.grad(flash_attention(qc, kc, kc, scale=0.2, window=9,
+                                                 cap=25.0).square().sum(), (qc, kc))
+    torch.testing.assert_close(gq.cpu(), rq, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gk.cpu(), rk, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,dtype", [(32, 16, torch.float32), (1, 4096, torch.float32),
+                                       (13, 100, torch.float32), (4, 40, torch.bfloat16)])
+def test_reverse_scan_kernel_matches_plain(gen, B, T, dtype):
+    deltas = torch.randn(B, T, generator=gen, device="cuda").to(dtype)
+    decays = (0.99 * torch.rand(B, T, generator=gen, device="cuda")).to(dtype)
+    init = torch.randn(B, generator=gen, device="cuda")
+    before = reverse_discounted_scan_p.launches
+    y = reverse_discounted_scan_p(deltas, decays, init)
+    assert reverse_discounted_scan_p.launches == before + 1 and y.dtype == torch.float32
+    ry = reverse_discounted_scan_ref(deltas, decays, init)
+    assert ((y - ry).abs().max() / ry.abs().max()).item() <= 1e-5
+    g = torch.randn(B, T, generator=gen, device="cuda")
+    leaves = [t.detach().requires_grad_() for t in (deltas, decays, init)]
+    gk = torch.autograd.grad((reverse_discounted_scan(*leaves) * g).sum(), leaves)
+    gr = torch.autograd.grad((reverse_discounted_scan_ref(*leaves) * g).sum(), leaves)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(gk, gr):
+        assert a.dtype == b.dtype
+        assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() <= tol
+
+
+def test_env_train_step_on_cuda_matches_cpu(gen):
+    """One env step of policy-s at fp32 compute, card against CPU: loss and
+    every grad leaf within 1e-4."""
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), compute_dtype="float32")
+    inner = adamw(3e-4, clip_norm=1.0)
+
+    def update(grads, state, params):
+        p, s, m = inner.update(grads, state, params)
+        return p, s, {**m, "grads": grads}
+    opt = Optimizer(inner.init, update)
+    step = build_env_train_step(cfg, 6, opt)
+    rng = np.random.default_rng(0)
+    B, T = 4, 8
+    batch = {"obs": torch.from_numpy(rng.integers(0, 16, (B, T, 26))),
+             "actions": torch.from_numpy(rng.integers(0, 6, (B, T))),
+             "behavior_logp": torch.full((B, T), -1.5),
+             "behavior_values": torch.from_numpy(rng.normal(size=(B, T)).astype(np.float32)),
+             "rewards": torch.from_numpy(rng.normal(size=(B, T)).astype(np.float32)),
+             "done": torch.from_numpy(rng.random((B, T)) < 0.1),
+             "bootstrap_value": torch.zeros(B)}
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        to = lambda t: tree_map(lambda a: a.to(dev), t)
+        out[dev] = step(to(params), opt.init(to(params)), to(batch))[2]
+    assert abs(out["cuda"]["loss"].item() - out["cpu"]["loss"].item()) <= 1e-4
+    for a, b in zip(tree_leaves(out["cuda"]["grads"]), tree_leaves(out["cpu"]["grads"])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)

@@ -1,7 +1,8 @@
 """The port's boundaries: no JAX in it, CUDA by default, kernels from source.
 
 - No module of `repro_torch`, and none of `chip_smoke.py`,
-  `tools/profile_infserver.py` and `tests/test_torch_cuda.py` (which runs
+  `tools/profile_infserver.py`, `tools/profile_learner.py` and
+  `tests/test_torch_cuda.py` (which runs
   on the card's machine, where there is no jax), imports jax or the JAX
   package `repro` (an AST walk, and a fresh interpreter that imports the
   whole port and finds no jax in `sys.modules`).
@@ -41,6 +42,7 @@ def _imported_roots(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tools" / "profile_infserver.py",
+                                          ROOT / "tools" / "profile_learner.py",
                                           ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
@@ -84,8 +86,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"rmsnorm.cu", "flash_fwd.cu"} <= names
-    assert set(_build.SIGNATURES) == {"rmsnorm_fwd", "flash_fwd"}
+    assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu", "reverse_scan.cu"} <= names
+    assert set(_build.SIGNATURES) == {"rmsnorm_fwd", "flash_fwd", "flash_bwd_preprocess",
+                                      "flash_bwd_dq", "flash_bwd_dkv", "reverse_scan"}
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
 
 
