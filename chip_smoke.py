@@ -278,28 +278,48 @@ def main() -> int:
             mask &= qp - kp < window
         return int(mask.sum().item())
 
+    S, M = "strided", "contiguous"
     flash_cases = [
-        # B, H, KV, T, d, dtype, mixed, window, cap, label
-        (ROWS, 4, 2, OBS_LEN, 32, torch.bfloat16, False, 0, 0.0, "policy-s serving"),
-        (ROWS, 4, 2, OBS_LEN, 32, torch.bfloat16, True, 0, 0.0, "policy-s serving, mixed"),
-        (ROWS, 8, 4, OBS_LEN, 32, torch.bfloat16, False, 0, 0.0, "policy-m serving"),
-        (ROWS, 8, 4, OBS_LEN, 32, torch.bfloat16, True, 0, 0.0, "policy-m serving, mixed"),
-        (3, 4, 2, 37, 64, torch.float32, False, 0, 0.0, "odd T, GQA"),
-        (2, 4, 2, 37, 128, torch.float32, False, 0, 0.0, "odd T, GQA, d=128"),
-        (2, 8, 2, 37, 256, torch.float32, False, 0, 0.0, "odd T, GQA, d=256"),
-        (1, 4, 2, 4096, 32, torch.float32, False, 512, 30.0, "learner seq shape"),
+        # B, H, KV, Tq, Tk, d, dtype, mixed, causal, window, cap, kv_len, layout, label
+        (ROWS, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "policy-s serving"),
+        (ROWS, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, True, True, 0, 0.0, None, S,
+         "policy-s serving, mixed"),
+        (ROWS, 8, 4, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "policy-m serving"),
+        (ROWS, 8, 4, OBS_LEN, OBS_LEN, 32, torch.bfloat16, True, True, 0, 0.0, None, S,
+         "policy-m serving, mixed"),
+        (ENV_B * ENV_T, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "learner env shape"),
+        (1, 4, 2, SEQ_T, SEQ_T, 32, torch.float32, False, True, 512, 30.0, None, S,
+         "learner seq shape"),
+        (3, 4, 2, 37, 37, 64, torch.float32, False, True, 0, 0.0, None, M, "odd T, GQA"),
+        (2, 4, 2, 37, 37, 128, torch.float32, False, True, 0, 0.0, None, M, "odd T, GQA, d=128"),
+        (2, 8, 2, 37, 37, 256, torch.float32, False, True, 0, 0.0, None, M, "odd T, GQA, d=256"),
+        # the tensor-core regime beyond d = 32, odd T, G in {1, 2, 4}
+        (2, 4, 4, 37, 37, 64, torch.bfloat16, False, True, 0, 0.0, None, S, "bf16, d=64, G=1"),
+        (2, 4, 2, 50, 50, 128, torch.bfloat16, False, True, 16, 20.0, None, M,
+         "bf16, d=128, G=2, window, cap"),
+        (2, 8, 2, 65, 65, 256, torch.bfloat16, False, True, 0, 0.0, 60, S,
+         "bf16, d=256, G=4, tail"),
+        (2, 4, 1, 37, 65, 64, torch.bfloat16, True, False, 0, 0.0, None, S,
+         "bf16 mixed, bidirectional, Tq != Tk"),
+        (2, 4, 2, 65, 65, 32, torch.float32, False, True, 8, 30.0, 50, S,
+         "fp32, window, cap, tail"),
     ]
-    for (B, H, KV, T, d, dtype, mixed, window, cap, label) in flash_cases:
-        if "serving" in label:
+    for (B, H, KV, Tq, Tk, d, dtype, mixed, causal, window, cap, kv_len, layout,
+         label) in flash_cases:
+        if layout == S:
             # the model's layout: (B, T, H, d) activations viewed as (B, H, T, d)
-            q = torch.randn(B, T, H, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
-            k = torch.randn(B, T, KV, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
-            v = torch.randn(B, T, KV, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            q = torch.randn(B, Tq, H, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            k = torch.randn(B, Tk, KV, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(B, Tk, KV, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
         else:
-            q = torch.randn(B, H, T, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(B, KV, T, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(B, KV, T, d, generator=gen, device=dev).to(dtype)
-        kw = dict(scale=d ** -0.5, causal=True, window=window, cap=cap, mixed=mixed)
+            q = torch.randn(B, H, Tq, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, KV, Tk, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(B, KV, Tk, d, generator=gen, device=dev).to(dtype)
+        kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len,
+                  mixed=mixed)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         ro, rlse = attention_fwd_ref(q, k, v, **kw)
         err = max((o.float() - ro.float()).abs().max().item(),
@@ -310,22 +330,27 @@ def main() -> int:
         tol = TOL["bfloat16"] if dtype == torch.bfloat16 else TOL["float32"]["attention"]
         check(err <= tol, f"flash {label}: err {err} > {tol}")
         check(bool(torch.isfinite(o.float()).all()), f"flash {label}: non-finite o")
+        check(o.stride() == q.stride(), f"flash {label}: o not in q's layout")
         ms = device_ms(lambda: flash_attention_fwd(q, k, v, **kw))
         plain_ms = device_ms(lambda: attention_fwd_ref(q, k, v, **kw))
         library_ms = None
-        if not window and not cap:
+        if causal and not window and not cap and kv_len is None and Tq == Tk:
             library_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True))
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size() \
             + lse.numel() * 4
-        flops = 4 * d * B * H * live_pairs(T, T, True, window)
+        flops = 4 * d * B * H * live_pairs(Tq, Tk, causal, window, kv_len)
         b_ms, b_by = bound(nbytes, flops, dname[dtype])
-        r = dict(shape=[B, H, KV, T, d], strided=not q.is_contiguous(),
-                 dtype=dname[dtype], mixed=mixed, window=window,
-                 cap=cap, label=label, max_abs_err=err, tol=tol, ms=ms,
+        r = dict(shape=[B, H, KV, Tq, Tk, d], strided=not q.is_contiguous(),
+                 dtype=dname[dtype], mixed=mixed, causal=causal, window=window,
+                 cap=cap, kv_len=kv_len, label=label, max_abs_err=err, tol=tol, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
         results["flash_attention_fwd"].append(r)
         emit("kernel", name="flash_attention_fwd", **r)
+    for lbl in ("policy-s serving", "policy-m serving"):
+        r = next(x for x in results["flash_attention_fwd"] if x["label"] == lbl)
+        check(r["ms"] <= r["library_ms"],
+              f"flash {lbl}: {r['ms']} ms, slower than SDPA's {r['library_ms']} ms")
 
     # edge cases the serving shapes do not reach: the RMSNorm scalar path
     # (odd d, misaligned x), and flash attention on strided (B, T, H, d)
@@ -351,6 +376,14 @@ def main() -> int:
             TOL["float32"]["attention"])
     for label, (err, tol) in edge.items():
         check(err <= tol, f"edge case {label}: err {err} > {tol}")
+    # the forward and dk/dv kernels copy 16-byte chunks: a misaligned view
+    # raises in the wrapper, it never reaches a kernel or a scalar path
+    qm = torch.randn(2 * 4 * 26 * 32 + 1, generator=gen, device=dev)[1:].view(2, 4, 26, 32)
+    try:
+        flash_attention_fwd(qm, qm[:, :2], qm[:, :2], scale=0.2)
+        check(False, "flash: a misaligned view did not raise")
+    except ValueError:
+        pass
     emit("kernel_edges", max_abs_err={k: e for k, (e, _) in edge.items()})
 
     # -- 3b. the learner's kernels against their plain versions ---------------
@@ -361,7 +394,7 @@ def main() -> int:
         # B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, layout, label
         (ENV_B * ENV_T, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, True, 0, 0.0, None,
          "bthd", "learner env shape"),
-        (1, 4, 2, SEQ_T, SEQ_T, 32, torch.float32, True, 512, 30.0, None, "bhtd",
+        (1, 4, 2, SEQ_T, SEQ_T, 32, torch.float32, True, 512, 30.0, None, "bthd",
          "learner seq shape"),
         (3, 2, 2, 37, 37, 64, torch.float32, True, 0, 0.0, None, "bthd", "odd T, G=1"),
         (2, 4, 2, 37, 37, 128, torch.float32, True, 5, 20.0, None, "bhtd",
@@ -371,6 +404,16 @@ def main() -> int:
         (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40, "bthd",
          "tail, rows with no live key"),
         (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None, "bthd", "bidirectional, Tq != Tk"),
+        # the tensor-core regime beyond d = 32, odd T, G in {1, 2, 4}
+        (2, 4, 4, 37, 37, 64, torch.bfloat16, True, 0, 0.0, None, "bthd", "bf16, d=64, G=1"),
+        (2, 4, 2, 50, 50, 128, torch.bfloat16, True, 16, 20.0, None, "bhtd",
+         "bf16, d=128, G=2, window, cap"),
+        (2, 8, 2, 65, 65, 256, torch.bfloat16, True, 0, 0.0, 60, "bthd",
+         "bf16, d=256, G=4, tail"),
+        (2, 4, 1, 37, 65, 64, torch.bfloat16, False, 0, 0.0, None, "bthd",
+         "bf16, bidirectional, Tq != Tk"),
+        (2, 4, 2, 65, 65, 32, torch.float32, True, 8, 30.0, 50, "bthd",
+         "fp32, window, cap, tail"),
     ]
     for (B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, layout, label) in bwd_cases:
         def make(heads, T):
@@ -694,18 +737,31 @@ def main() -> int:
              tol=CARD_VS_CPU_TOL)
 
     # -- 8. summary --------------------------------------------------------------
+    # main-path shapes by label, and launches per unit of the main path: per
+    # flush (policy-s, policy-m), per env step and per seq step
+    main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
+                   "learner seq shape", "GAE, env step", "V-trace, seq step")
+    per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
+                       "env_step": per_step["env"][name], "seq_step": per_step["seq"][name]}
+                for name in SOURCES}
+    for arch, key in (("tleague-policy-s", "flush_policy_s"),
+                      ("tleague-policy-m", "flush_policy_m")):
+        L = get_arch(arch).num_layers
+        per_unit["rmsnorm"][key], per_unit["flash_attention_fwd"][key] = 2 * L + 1, L
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         head = results[name][0]   # the policy-s serving shape; the env step's for the learner's
         by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
+                        "launches_by_path": by_path, "launches_per_unit": per_unit[name],
                         "max_abs_err": max(r["max_abs_err"] for r in results[name]),
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                         "library_ms": head["library_ms"], "shape": head["shape"],
-                        "dtype": head["dtype"]})
+                        "dtype": head["dtype"],
+                        "main_path_ms": {r["label"]: [r["ms"], r["bound_ms"]]
+                                         for r in results[name] if r["label"] in main_shapes}})
     # a short digest first, so a log that keeps only the tail still has it:
     # serve is [median flush ms, rows/s] per flush kind at 256 rows; train is
     # the median step ms

@@ -18,38 +18,40 @@
 // bf16) device memory: each pass reads q, k, v, dO and writes its
 // gradients once, ~17 MB in all.
 //
-// Design (simple and right first; no wgmma, TMA or warp specialisation):
-// - All arithmetic is IEEE fp32 on the CUDA cores, as repro's backward
-//   upcasts; inputs in fp32 or bf16 are staged in shared memory as fp32.
+// Design:
 // - preprocess: one warp per row; o is read as the forward stored it (in
 //   q's dtype), as _bwd_preprocess_kernel reads it.
-// - dq: one 128-thread block per (q tile of 32 rows, head, batch). Each
-//   warp owns 8 query rows; for a row, lane j recomputes the score of key j
-//   of the staged KV tile and the warp broadcasts ds_j with shuffles into
-//   the row's D/32 dq columns per lane, accumulated in registers. The loop
-//   visits live KV tiles only: up to the diagonal when causal, from the
-//   window's horizon when windowed, up to kv_len (the _tile_live skips).
-// - dk/dv: one block per (KV tile of 32 keys, KV head, batch). It loops
-//   over the G query heads of its group and their live q tiles; each warp
-//   owns 8 keys, lane i recomputes the pair (query i, key) and the warp
-//   broadcasts p_i and ds_i into the key's dk and dv columns. dk and dv are
-//   written per KV head: repro's per-query-head buffers and their group
-//   sum (a TPU grid-order constraint, kernel.py:328-332) are gone, and with
-//   no atomics the result is deterministic.
+// - dq (simple and right first): one 128-thread block per (q tile of 32
+//   rows, head, batch), all arithmetic IEEE fp32 on the CUDA cores with
+//   inputs staged as fp32. Each warp owns 8 query rows; for a row, lane j
+//   recomputes the score of key j of the staged KV tile and the warp
+//   broadcasts ds_j with shuffles into the row's D/32 dq columns per lane,
+//   accumulated in registers. The loop visits live KV tiles only: up to
+//   the diagonal when causal, from the window's horizon when windowed, up
+//   to kv_len (the _tile_live skips).
+// - dk/dv: one block per (KV tile, KV head, batch) looping over the live q
+//   tiles of the whole G-head group (below). Two regimes by dtype: bf16
+//   inputs on the tensor cores (mma.sync m16n8k16, p and ds fed as bf16
+//   hi + lo so they keep fp32 precision as _tile_grads does), fp32 inputs
+//   register-tiled on the CUDA cores in IEEE fp32. dk and dv are written
+//   per KV head: repro's per-query-head buffers and their group sum (a TPU
+//   grid-order constraint, kernel.py:328-332) are gone, and with no
+//   atomics the result is deterministic.
 // - Masked entries get p = 0 and ds = 0 explicitly rather than through
 //   exp(NEG_INF - lse): a row with no live key has lse = 0 from the port's
 //   forward, and only the mask zeroes it.
 // - q, k, v, dO and the gradients are addressed through (batch, head, time)
 //   strides, so the model's (B, T, H, d) layout needs no transpose copy.
+//   The dk/dv kernels load with 16-byte cp.async: rows and base pointers
+//   must be 16-byte aligned (the wrapper checks).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBK = 32;                       // keys per KV tile
-constexpr int kWarps = 4;
+constexpr int kBK = 32;                       // dq: keys per KV tile
+constexpr int kWarps = 4;                     // dq: warps per block
 constexpr int kRowsPerWarp = 8;               // dq: query rows per warp
 constexpr int kBQ = kWarps * kRowsPerWarp;    // query rows per q tile
-constexpr int kKeysPerWarp = kBK / kWarps;    // dk/dv: keys per warp
 
 struct BwdParams {
   const void* q;
@@ -231,129 +233,441 @@ __global__ void __launch_bounds__(kWarps * 32) bwd_dq_kernel(const BwdParams p) 
 }
 
 // -- dk / dv ----------------------------------------------------------------
+//
+// One block per (KV tile, KV head, batch). The block loops over the live q
+// tiles of its KV tile with the G query heads of the KV head stacked
+// position-major (stacked row r is position r / G of query head
+// kvh * G + r % G, as flash_fwd.cu), so one pass covers the whole group
+// and dk, dv stay in registers: one owner per tile, no atomics, a bitwise
+// deterministic result. Q, dO, lse and delta tiles are
+// double-buffered with cp.async (the next loads while this one is
+// computed); a stacked row past the end gets t = -1 and every pair of it
+// is masked.
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kBK * D + 2 * kBQ * (D + 1) + 2 * kBQ) * static_cast<int>(sizeof(float));
+// Stage stacked q rows [rt0, rt0 + BM) of q and dO, with their lse, delta
+// and positions (-1 past the end), into one buffer.
+template <typename T, int D, int BM, int LD, int THREADS>
+__device__ __forceinline__ void stage_q_tile(const BwdParams& p, int b, int kvh, int rt0,
+                                             T* Qd, T* dOd, float* Ld, float* Dd, int* Td) {
+  const int G = p.H / p.KV, R = G * p.Tq;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sqb + kvh * G * p.sqh;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.sdob + kvh * G * p.sdoh;
+  const long long sqh = p.sqh, sqt = p.sqt, sdoh = p.sdoh, sdot = p.sdot;
+  repro::stage_rows<T, D, BM, LD, THREADS>(Qd, [=](int i) -> const T* {
+    const int r = rt0 + i;
+    return r < R ? qb + (r % G) * sqh + (r / G) * sqt : nullptr;
+  });
+  repro::stage_rows<T, D, BM, LD, THREADS>(dOd, [=](int i) -> const T* {
+    const int r = rt0 + i;
+    return r < R ? dob + (r % G) * sdoh + (r / G) * sdot : nullptr;
+  });
+  for (int i = threadIdx.x; i < BM; i += THREADS) {
+    const int r = rt0 + i;
+    if (r < R) {
+      const long long row = (static_cast<long long>(b) * p.H + kvh * G + r % G) * p.Tq + r / G;
+      repro::cp_async4(Ld + i, p.lse + row);
+      repro::cp_async4(Dd + i, p.delta + row);
+      Td[i] = r / G;
+    } else {
+      Ld[i] = Dd[i] = 0.f;
+      Td[i] = -1;
+    }
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32) bwd_dkv_kernel(const BwdParams p) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of the warp size");
-  constexpr int C = D / 32;  // dk/dv columns per lane
-  extern __shared__ float smem[];
-  float* Ks = smem;                   // [kBK][D]
-  float* Vs = Ks + kBK * D;           // [kBK][D]
-  float* Qs = Vs + kBK * D;           // [kBQ][D + 1]
-  float* dOs = Qs + kBQ * (D + 1);    // [kBQ][D + 1]
-  float* Ls = dOs + kBQ * (D + 1);    // [kBQ] lse
-  float* Ds = Ls + kBQ;               // [kBQ] delta
+// Live query positions [q_lo, q_hi) of keys [j0, j0 + n).
+__device__ __forceinline__ void query_range(const BwdParams& p, int j0, int n, int& q_lo,
+                                            int& q_hi) {
+  const int kv_end = min(p.Tk, p.kv_len);
+  const int j_last = min(j0 + n, kv_end) - 1;  // < j0: no live key here
+  q_lo = p.causal ? j0 : 0;
+  q_hi = p.Tq;
+  if (p.window > 0) q_hi = min(q_hi, j_last + p.window);
+  if (j_last < j0) q_hi = q_lo;
+}
 
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
+// bf16 inputs: tensor cores. Each of 2 warps owns 16 keys as MMA rows (a
+// KV tile of 32 keys: the env step's T = 26 is one tile, and 64-thread
+// blocks of <= 128 registers put its 1024 blocks in one wave). Per 32
+// staged columns: S^T = K Q^T and dP^T = V dO^T from ldmatrix fragments,
+// then P^T and dS^T on the accumulator fragments, then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T as A fragments straight from registers.
+// _tile_grads keeps p and ds in fp32, so each goes in as bf16 hi + lo (two
+// MMAs). A warp skips a q tile in which none of its keys has a live query.
+constexpr int kDkvBf16Warps = 2;
+
+template <int D> struct DkvBf16 {
+  static constexpr int BN = 16 * kDkvBf16Warps, BM = D <= 64 ? 64 : 32, LD = D + 8;
+  static constexpr int smem = (2 * BN + 4 * BM) * LD * 2 + 2 * 3 * BM * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdParams p) {
+  using T = __nv_bfloat16;
+  constexpr int THREADS = kDkvBf16Warps * 32;
+  constexpr int BN = DkvBf16<D>::BN, BM = DkvBf16<D>::BM, LD = DkvBf16<D>::LD;
+  constexpr int CW = 32;      // columns (stacked q rows) per pass over a staged tile
+  constexpr int NT = CW / 8;  // S^T n-tiles per pass
+  constexpr int DT = D / 8;   // dk/dv n-tiles per warp
+  extern __shared__ float4 smem4[];
+  T* Ks = reinterpret_cast<T*>(smem4);  // [BN][LD]
+  T* Vs = Ks + BN * LD;                 // [BN][LD]
+  T* Qs = Vs + BN * LD;                 // [2][BM][LD]
+  T* dOs = Qs + 2 * BM * LD;            // [2][BM][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BM * LD);  // [2][BM]
+  float* Ds = Ls + 2 * BM;                                  // [2][BM]
+  int* Ts = reinterpret_cast<int*>(Ds + 2 * BM);            // [2][BM]
+
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * BN;
   const int G = p.H / p.KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, cq = lane & 3;
   const T* kb = static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh;
   const T* vb = static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh;
-  for (int idx = threadIdx.x; idx < kBK * D; idx += blockDim.x) {
-    const int r = idx / D, c = idx % D, t = k0 + r;
-    const bool in = t < p.Tk;
-    Ks[idx] = in ? repro::to_float(kb[t * p.skt + c]) : 0.f;
-    Vs[idx] = in ? repro::to_float(vb[t * p.svt + c]) : 0.f;
+  {
+    const int Tk = p.Tk;
+    const long long skt = p.skt, svt = p.svt;
+    repro::stage_rows<T, D, BN, LD, THREADS>(Ks, [=](int i) -> const T* {
+      return k0 + i < Tk ? kb + (k0 + i) * skt : nullptr;
+    });
+    repro::stage_rows<T, D, BN, LD, THREADS>(Vs, [=](int i) -> const T* {
+      return k0 + i < Tk ? vb + (k0 + i) * svt : nullptr;
+    });
   }
 
-  // live query range [q_lo, q_hi) for the whole KV tile
+  int q_lo, q_hi, wq_lo, wq_hi;
+  query_range(p, k0, BN, q_lo, q_hi);
+  query_range(p, k0 + warp * 16, 16, wq_lo, wq_hi);  // this warp's keys
+  const int rt_lo = q_lo * G / BM;
+  const int rt_hi = q_hi > q_lo ? (q_hi * G + BM - 1) / BM : rt_lo;
   const int kv_end = min(p.Tk, p.kv_len);
-  const int k_last = min(k0 + kBK, kv_end) - 1;   // < k0: no live key here
-  const int q_lo = p.causal ? k0 : 0;
-  int q_hi = p.Tq;
-  if (p.window > 0) q_hi = min(q_hi, k_last + p.window);
-  if (k_last < k0) q_hi = q_lo;
-  const int qt_lo = q_lo / kBQ;
-  const int qt_hi = q_hi > q_lo ? (q_hi + kBQ - 1) / kBQ : qt_lo;
+  const int ka = k0 + warp * 16 + gq, kb8 = ka + 8;  // this lane's two keys
 
-  float dk[kKeysPerWarp][C], dv[kKeysPerWarp][C];
+  float dk[DT][4], dv[DT][4];
 #pragma unroll
-  for (int jj = 0; jj < kKeysPerWarp; ++jj)
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int c = 0; c < C; ++c) dk[jj][c] = dv[jj][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-    const T* dob = static_cast<const T*>(p.dout) + b * p.sdob + h * p.sdoh;
-    const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Tq;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      __syncthreads();  // the previous q tile is consumed (and Ks, Vs are staged)
-      const int q0 = qt * kBQ;
-      for (int idx = threadIdx.x; idx < kBQ * D; idx += blockDim.x) {
-        const int r = idx / D, c = idx % D, t = q0 + r;
-        const bool in = t < p.Tq;
-        Qs[r * (D + 1) + c] = in ? repro::to_float(qb[t * p.sqt + c]) : 0.f;
-        dOs[r * (D + 1) + c] = in ? repro::to_float(dob[t * p.sdot + c]) : 0.f;
+  auto stage = [&](int rt, int buf) {
+    stage_q_tile<T, D, BM, LD, THREADS>(p, b, kvh, rt * BM, Qs + buf * BM * LD,
+                                        dOs + buf * BM * LD, Ls + buf * BM, Ds + buf * BM,
+                                        Ts + buf * BM);
+  };
+  if (rt_lo < rt_hi) stage(rt_lo, 0);
+  repro::cp_async_commit();
+  for (int rt = rt_lo; rt < rt_hi; ++rt) {
+    const int buf = (rt - rt_lo) & 1;
+    repro::cp_async_wait_all();
+    __syncthreads();  // q tile rt (and K, V) landed; every warp is done with rt - 1
+    if (rt + 1 < rt_hi) stage(rt + 1, buf ^ 1);
+    repro::cp_async_commit();
+#pragma unroll 1
+    for (int c0 = 0; c0 < BM; c0 += CW) {
+      const int rc0 = rt * BM + c0;  // first stacked row of this pass
+      if (wq_hi <= wq_lo || (rc0 + CW - 1) / G < wq_lo || rc0 / G >= wq_hi) continue;
+      const T* Qt = Qs + buf * BM * LD + c0 * LD;
+      const T* dOt = dOs + buf * BM * LD + c0 * LD;
+      const float* Lt = Ls + buf * BM + c0;
+      const float* Dt = Ds + buf * BM + c0;
+      const int* Tt = Ts + buf * BM + c0;
+
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16
+                          + (lane >> 4) * 8;
+        unsigned ak[4], av[4];
+        repro::ldmatrix_x4(ak, Ks + a_off);
+        repro::ldmatrix_x4(av, Vs + a_off);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          const int b_off = (n * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16
+                            + ((lane >> 3) & 1) * 8;
+          unsigned bq[4], bd[4];
+          repro::ldmatrix_x4(bq, Qt + b_off);
+          repro::mma_bf16(st[n], ak, bq[0], bq[1]);
+          repro::mma_bf16(st[n + 1], ak, bq[2], bq[3]);
+          repro::ldmatrix_x4(bd, dOt + b_off);
+          repro::mma_bf16(dpt[n], av, bd[0], bd[1]);
+          repro::mma_bf16(dpt[n + 1], av, bd[2], bd[3]);
+        }
       }
-      if (threadIdx.x < kBQ) {
-        const int t = q0 + threadIdx.x;
-        Ls[threadIdx.x] = t < p.Tq ? p.lse[row0 + t] : 0.f;
-        Ds[threadIdx.x] = t < p.Tq ? p.delta[row0 + t] : 0.f;
-      }
-      __syncthreads();
 
-      const int qpos = q0 + lane;  // this lane's query
-      const float* qr = Qs + lane * (D + 1);
-      const float* dor = dOs + lane * (D + 1);
-      const float lse = Ls[lane], delta = Ds[lane];
+      // element e of n-tile n: key (e < 2 ? ka : kb8), column 8 n + 2 cq + (e & 1)
 #pragma unroll
-      for (int jj = 0; jj < kKeysPerWarp; ++jj) {
-        const int r = warp * kKeysPerWarp + jj, j = k0 + r;
-        const bool live = qpos < p.Tq && pair_live(qpos, j, kv_end, p);
-        if (__any_sync(repro::kFullMask, live)) {  // skip a key's dead q tile
-          const float* kr = Ks + r * D;
-          const float* vr = Vs + r * D;
-          float s = 0.f, dp = 0.f;
-#pragma unroll 8
-          for (int e = 0; e < D; ++e) {
-            s = fmaf(qr[e], kr[e], s);
-            dp = fmaf(dor[e], vr[e], dp);
-          }
+      for (int n = 0; n < NT; ++n) {
+        const int c = n * 8 + 2 * cq;
+        const float2 lse = *reinterpret_cast<const float2*>(Lt + c);
+        const float2 delta = *reinterpret_cast<const float2*>(Dt + c);
+        const int2 t = *reinterpret_cast<const int2*>(Tt + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tq = e & 1 ? t.y : t.x;
+          const bool live = tq >= 0 && pair_live(tq, e < 2 ? ka : kb8, kv_end, p);
           float pj, ds;
-          pair_grads(s, dp, lse, delta, live, p, pj, ds);
-          float pv[C], pk[C];
+          pair_grads(st[n][e], dpt[n][e], e & 1 ? lse.y : lse.x, e & 1 ? delta.y : delta.x,
+                     live, p, pj, ds);
+          st[n][e] = pj;
+          dpt[n][e] = ds;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: the accumulators of n-tiles 2 kq and
+      // 2 kq + 1 are the A fragment of columns 16 kq .. 16 kq + 15
 #pragma unroll
-          for (int c = 0; c < C; ++c) pv[c] = pk[c] = 0.f;
-#pragma unroll 8
-          for (int ii = 0; ii < kBQ; ++ii) {
-            const float pb = __shfl_sync(repro::kFullMask, pj, ii);
-            const float db = __shfl_sync(repro::kFullMask, ds, ii);
-            const float* doc = dOs + ii * (D + 1) + lane;
-            const float* qc = Qs + ii * (D + 1) + lane;
+      for (int kq = 0; kq < CW / 16; ++kq) {
+        unsigned ph[4], pl[4], sh[4], sl[4];
 #pragma unroll
-            for (int c = 0; c < C; ++c) {
-              pv[c] = fmaf(pb, doc[32 * c], pv[c]);
-              pk[c] = fmaf(db, qc[32 * c], pk[c]);
-            }
-          }
+        for (int h = 0; h < 2; ++h) {
+          repro::split_bf16(st[2 * kq + h][0], st[2 * kq + h][1], ph[2 * h], pl[2 * h]);
+          repro::split_bf16(st[2 * kq + h][2], st[2 * kq + h][3], ph[2 * h + 1], pl[2 * h + 1]);
+          repro::split_bf16(dpt[2 * kq + h][0], dpt[2 * kq + h][1], sh[2 * h], sl[2 * h]);
+          repro::split_bf16(dpt[2 * kq + h][2], dpt[2 * kq + h][3], sh[2 * h + 1],
+                            sl[2 * h + 1]);
+        }
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            dv[jj][c] += pv[c];
-            dk[jj][c] += pk[c] * p.scale;
+        for (int n = 0; n < DT; n += 2) {
+          const int b_off = (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n * 8
+                            + (lane >> 4) * 8;
+          unsigned bd[4], bq[4];
+          repro::ldmatrix_x4_trans(bd, dOt + b_off);
+          repro::mma_bf16(dv[n], ph, bd[0], bd[1]);
+          repro::mma_bf16(dv[n + 1], ph, bd[2], bd[3]);
+          repro::mma_bf16(dv[n], pl, bd[0], bd[1]);
+          repro::mma_bf16(dv[n + 1], pl, bd[2], bd[3]);
+          repro::ldmatrix_x4_trans(bq, Qt + b_off);
+          repro::mma_bf16(dk[n], sh, bq[0], bq[1]);
+          repro::mma_bf16(dk[n + 1], sh, bq[2], bq[3]);
+          repro::mma_bf16(dk[n], sl, bq[0], bq[1]);
+          repro::mma_bf16(dk[n + 1], sl, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  repro::cp_async_wait_all();  // no copy outlives the block (an empty sweep)
+  T* dkb = static_cast<T*>(p.dk) + b * p.sgkb + kvh * p.sgkh;
+  T* dvb = static_cast<T*>(p.dv) + b * p.sgvb + kvh * p.sgvh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = r ? kb8 : ka;
+    if (j >= p.Tk) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int c = n * 8 + 2 * cq;
+      *reinterpret_cast<unsigned*>(dkb + j * p.sgkt + c) =
+          repro::pack_bf16(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+      *reinterpret_cast<unsigned*>(dvb + j * p.sgvt + c) =
+          repro::pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+// fp32 inputs: register-tiled CUDA cores, IEEE fp32. 256 threads on a KV
+// tile of 32 keys: 256 blocks at T = 4096 with 2 KV heads (~2 per SM of
+// 132, 16 warps each). What bounds a register-tiled fp32 product here is
+// shared-memory issue (one 128-byte wavefront per clock against 128 FMAs),
+// so both phases give each lane a micro-tile whose warp reads hit at most
+// 8 distinct 16-byte chunks per load:
+// - Phase 1: warp w covers keys 16 (w % 2) .. + 15 and a quarter of the
+//   queries; lane (kg, qg) = (lane % 8, lane / 8) computes S^T and dP^T for
+//   keys kg + 8 i (i < 2) and queries qg + 4 j from float4 reads of K, V, Q
+//   and dO (64 FMAs per 12 wavefronts), then P^T and dS^T, which go to
+//   shared memory.
+// - Phase 2: the block's two halves take alternate groups of 4 queries;
+//   thread (kr, cc) of a half owns dk and dv of keys kr + 16 i (i < 2) at
+//   columns 4 cc + 32 c (64 FMAs per 12 wavefronts). At the end the second
+//   half's sums are added to the first's in a fixed order, so the result
+//   stays deterministic.
+constexpr int kDkvF32Threads = 256;
+
+template <int D> struct DkvF32 {
+  // PLD = BM + 4: phase 1's stores of 8 keys x 4 queries hit 32 banks
+  static constexpr int BN = 32, BM = D <= 64 ? 64 : 32, LD = D + 4, PLD = BM + 4;
+  static constexpr int smem = ((2 * BN + 4 * BM) * LD + 2 * BN * PLD) * 4 + 2 * 3 * BM * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p) {
+  constexpr int THREADS = kDkvF32Threads;
+  constexpr int BN = DkvF32<D>::BN, BM = DkvF32<D>::BM, LD = DkvF32<D>::LD;
+  constexpr int PLD = DkvF32<D>::PLD;
+  constexpr int QW = BM / 4;   // queries per warp in phase 1
+  constexpr int QJ = QW / 4;   // queries per lane in phase 1
+  constexpr int CJ = D / 32;   // float4 columns per thread and key in phase 2
+  static_assert(2 * BN * D <= 4 * BM * LD, "phase 2's partial sums fit in the q tiles");
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // [BN][LD]
+  float* Vs = Ks + BN * LD;                     // [BN][LD]
+  float* Qs = Vs + BN * LD;                     // [2][BM][LD]
+  float* dOs = Qs + 2 * BM * LD;                // [2][BM][LD]
+  float* Ps = dOs + 2 * BM * LD;                // [BN][PLD]  P^T
+  float* dSs = Ps + BN * PLD;                   // [BN][PLD]  dS^T
+  float* Ls = dSs + BN * PLD;                   // [2][BM]
+  float* Ds = Ls + 2 * BM;                      // [2][BM]
+  int* Ts = reinterpret_cast<int*>(Ds + 2 * BM);  // [2][BM]
+
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * BN;
+  const int G = p.H / p.KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key1 = 16 * (warp & 1) + (lane & 7);   // phase 1: keys key1 + 8 i
+  const int q1 = QW * (warp >> 1) + (lane >> 3);   // phase 1: queries q1 + 4 j
+  const int half = threadIdx.x >> 7;               // phase 2: query groups 2 m + half
+  const int kr = (threadIdx.x & 127) >> 3, cc = threadIdx.x & 7;  // phase 2
+  const float* kb = static_cast<const float*>(p.k) + b * p.skb + kvh * p.skh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.svb + kvh * p.svh;
+  {
+    const int Tk = p.Tk;
+    const long long skt = p.skt, svt = p.svt;
+    repro::stage_rows<float, D, BN, LD, THREADS>(Ks, [=](int i) -> const float* {
+      return k0 + i < Tk ? kb + (k0 + i) * skt : nullptr;
+    });
+    repro::stage_rows<float, D, BN, LD, THREADS>(Vs, [=](int i) -> const float* {
+      return k0 + i < Tk ? vb + (k0 + i) * svt : nullptr;
+    });
+  }
+
+  int q_lo, q_hi;
+  query_range(p, k0, BN, q_lo, q_hi);
+  const int rt_lo = q_lo * G / BM;
+  const int rt_hi = q_hi > q_lo ? (q_hi * G + BM - 1) / BM : rt_lo;
+  const int kv_end = min(p.Tk, p.kv_len);
+
+  float dk[2][CJ][4], dv[2][CJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < CJ; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][c][e] = dv[i][c][e] = 0.f;
+
+  auto stage = [&](int rt, int buf) {
+    stage_q_tile<float, D, BM, LD, THREADS>(p, b, kvh, rt * BM, Qs + buf * BM * LD,
+                                            dOs + buf * BM * LD, Ls + buf * BM,
+                                            Ds + buf * BM, Ts + buf * BM);
+  };
+  if (rt_lo < rt_hi) stage(rt_lo, 0);
+  repro::cp_async_commit();
+  for (int rt = rt_lo; rt < rt_hi; ++rt) {
+    const int buf = (rt - rt_lo) & 1;
+    repro::cp_async_wait_all();
+    __syncthreads();  // q tile rt (and K, V) landed; tile rt - 1, Ps and dSs are consumed
+    if (rt + 1 < rt_hi) stage(rt + 1, buf ^ 1);
+    repro::cp_async_commit();
+    const float* Qt = Qs + buf * BM * LD;
+    const float* dOt = dOs + buf * BM * LD;
+
+    float s[2][QJ], dp[2][QJ];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[2], vf[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        kf[i] = *reinterpret_cast<const float4*>(Ks + (key1 + 8 * i) * LD + d);
+        vf[i] = *reinterpret_cast<const float4*>(Vs + (key1 + 8 * i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) {
+        const float4 qf = *reinterpret_cast<const float4*>(Qt + (q1 + 4 * j) * LD + d);
+        const float4 df = *reinterpret_cast<const float4*>(dOt + (q1 + 4 * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          s[i][j] = repro::dot4(kf[i], qf, s[i][j]);
+          dp[i][j] = repro::dot4(vf[i], df, dp[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QJ; ++j) {
+      const int c = q1 + 4 * j;
+      const int t = Ts[buf * BM + c];
+      const float lse = Ls[buf * BM + c], delta = Ds[buf * BM + c];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bool live = t >= 0 && pair_live(t, k0 + key1 + 8 * i, kv_end, p);
+        float pj, ds;
+        pair_grads(s[i][j], dp[i][j], lse, delta, live, p, pj, ds);
+        Ps[(key1 + 8 * i) * PLD + c] = pj;
+        dSs[(key1 + 8 * i) * PLD + c] = ds;
+      }
+    }
+    __syncthreads();  // P^T and dS^T of the whole tile are in shared memory
+
+#pragma unroll 2
+    for (int q = 4 * half; q < BM; q += 8) {
+      float4 pa[2], da[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        pa[i] = *reinterpret_cast<const float4*>(Ps + (kr + 16 * i) * PLD + q);
+        da[i] = *reinterpret_cast<const float4*>(dSs + (kr + 16 * i) * PLD + q);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) {
+          const float4 dov = *reinterpret_cast<const float4*>(dOt + (q + u) * LD + 4 * cc + 32 * c);
+          const float4 qv = *reinterpret_cast<const float4*>(Qt + (q + u) * LD + 4 * cc + 32 * c);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float pu = repro::lane4(pa[i], u), du = repro::lane4(da[i], u);
+            dv[i][c][0] = fmaf(pu, dov.x, dv[i][c][0]);
+            dv[i][c][1] = fmaf(pu, dov.y, dv[i][c][1]);
+            dv[i][c][2] = fmaf(pu, dov.z, dv[i][c][2]);
+            dv[i][c][3] = fmaf(pu, dov.w, dv[i][c][3]);
+            dk[i][c][0] = fmaf(du, qv.x, dk[i][c][0]);
+            dk[i][c][1] = fmaf(du, qv.y, dk[i][c][1]);
+            dk[i][c][2] = fmaf(du, qv.z, dk[i][c][2]);
+            dk[i][c][3] = fmaf(du, qv.w, dk[i][c][3]);
           }
         }
       }
     }
   }
 
-  T* dkb = static_cast<T*>(p.dk) + b * p.sgkb + kvh * p.sgkh;
-  T* dvb = static_cast<T*>(p.dv) + b * p.sgvb + kvh * p.sgvh;
+  // the second half hands its sums to the first through the q tiles' memory
+  repro::cp_async_wait_all();
+  __syncthreads();
+  float* part = Qs;  // [2][BN][D]: dk, dv
+  if (half) {
 #pragma unroll
-  for (int jj = 0; jj < kKeysPerWarp; ++jj) {
-    const int j = k0 + warp * kKeysPerWarp + jj;
-    if (j < p.Tk) {
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dkb[j * p.sgkt + lane + 32 * c] = repro::from_float<T>(dk[jj][c]);
-        dvb[j * p.sgvt + lane + 32 * c] = repro::from_float<T>(dv[jj][c]);
+      for (int c = 0; c < CJ; ++c) {
+        const int at = (kr + 16 * i) * D + 4 * cc + 32 * c;
+        *reinterpret_cast<float4*>(part + at) =
+            make_float4(dk[i][c][0], dk[i][c][1], dk[i][c][2], dk[i][c][3]);
+        *reinterpret_cast<float4*>(part + BN * D + at) =
+            make_float4(dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]);
       }
+  }
+  __syncthreads();
+  if (half) return;
+  float* dkb = static_cast<float*>(p.dk) + b * p.sgkb + kvh * p.sgkh;
+  float* dvb = static_cast<float*>(p.dv) + b * p.sgvb + kvh * p.sgvh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = k0 + kr + 16 * i;
+    if (j >= p.Tk) continue;
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      const int col = 4 * cc + 32 * c, at = (kr + 16 * i) * D + col;
+      const float4 pk = *reinterpret_cast<const float4*>(part + at);
+      const float4 pv = *reinterpret_cast<const float4*>(part + BN * D + at);
+      *reinterpret_cast<float4*>(dkb + j * p.sgkt + col) =
+          make_float4((dk[i][c][0] + pk.x) * p.scale, (dk[i][c][1] + pk.y) * p.scale,
+                      (dk[i][c][2] + pk.z) * p.scale, (dk[i][c][3] + pk.w) * p.scale);
+      *reinterpret_cast<float4*>(dvb + j * p.sgvt + col) =
+          make_float4(dv[i][c][0] + pv.x, dv[i][c][1] + pv.y, dv[i][c][2] + pv.z,
+                      dv[i][c][3] + pv.w);
     }
   }
 }
@@ -378,11 +692,15 @@ cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdParams& p, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  const cudaError_t e = allow_smem(bwd_dkv_kernel<T, D>, smem);
+  constexpr bool bf16 = sizeof(T) == 2;
+  constexpr int smem = bf16 ? DkvBf16<D>::smem : DkvF32<D>::smem;
+  constexpr int BN = bf16 ? DkvBf16<D>::BN : DkvF32<D>::BN;
+  constexpr int threads = bf16 ? kDkvBf16Warps * 32 : kDkvF32Threads;
+  auto* kernel = bf16 ? bwd_dkv_bf16<D> : bwd_dkv_f32<D>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.Tk + kBK - 1) / kBK, p.KV, p.B);
-  bwd_dkv_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(p);
+  const dim3 grid((p.Tk + BN - 1) / BN, p.KV, p.B);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

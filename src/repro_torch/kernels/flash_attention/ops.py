@@ -12,8 +12,11 @@ kernels mask their own ragged edge. q, k, v, o and dO may be strided views
 long as the head dim is contiguous; o and dq come back in q's memory
 layout, dk and dv in k's and v's. The dk/dv kernel writes one gradient per
 KV head, so `repro`'s per-query-head buffers and group sum (`ops.py:96-100`)
-have no counterpart. Each wrapper's `.launches` counts its kernel's
-launches and nothing else.
+have no counterpart. The forward and dk/dv kernels stage their tiles with
+16-byte `cp.async`, so their tensors' base addresses and (batch, head,
+time) strides must be multiples of 16 bytes (`check_aligned`); the model's
+activations and every fresh allocation are. Each wrapper's `.launches`
+counts its kernel's launches and nothing else.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.kernels.flash_attention.ref import (
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128, 256)
 _INT_MAX = 2 ** 31 - 1
+ALIGN = 16          # bytes: one cp.async chunk
 
 
 def _check(q, k, v, mixed):
@@ -46,6 +50,33 @@ def _check(q, k, v, mixed):
         raise TypeError("flash attention: mixed takes bf16 q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("flash attention: q, k, v on different devices")
+
+
+def check_head_dim(d: int) -> None:
+    """Raise unless the kernels are built for head dim `d`."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
+
+
+def aligned(t) -> bool:
+    """Whether the 16-byte copies of the forward and dk/dv kernels can read
+    or write `t` (B, H, T, d) as it lies: contiguous head dim, base address
+    and every (batch, head, time) stride a multiple of 16 bytes (a stride of
+    a size-1 dim is never used)."""
+    esz = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % ALIGN == 0
+            and all(n == 1 or t.stride(i) * esz % ALIGN == 0
+                    for i, n in enumerate(t.shape[:3])))
+
+
+def check_aligned(*ts) -> None:
+    """Raise on the first tensor `aligned` refuses: there is no scalar path."""
+    for t in ts:
+        if not aligned(t):
+            raise ValueError(
+                f"flash attention kernel needs 16-byte aligned rows: shape "
+                f"{tuple(t.shape)}, strides {t.stride()}, {t.element_size()}-byte "
+                f"elements, address {t.data_ptr():#x}")
 
 
 def _strides(*ts):
@@ -66,9 +97,7 @@ def _check_kernel(q):
         raise ValueError(f"flash attention: unsupported device {q.device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash attention kernel takes {DTYPES}, got {q.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {q.shape[3]}")
+    check_head_dim(q.shape[3])
 
 
 def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
@@ -88,6 +117,7 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, o)
+    check_aligned(q, k, v, o)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -174,11 +204,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
     B, H, Tq, d = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    strides = _strides(q, k, v, do, dk, dv)
+    check_aligned(q, k, v, do, dk, dv)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            B, H, KV, Tq, Tk, d, *_strides(q, k, v, do, dk, dv),
+                            B, H, KV, Tq, Tk, d, *strides,
                             float(scale), int(causal), int(window), float(cap or 0.0),
                             kv_len, int(q.dtype == torch.bfloat16),
                             torch.cuda.current_stream(q.device).cuda_stream)
@@ -219,8 +251,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if not aligned(do):               # a fresh copy has 16-byte rows
+            do = do.clone(memory_format=torch.contiguous_format)
         return flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw) + (None,) * 6
 
 

@@ -84,6 +84,15 @@ FLASH = [
     (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None, False),    # Tq != Tk
     (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40, False),     # rows with no live key
     (1, 4, 2, 1024, 1024, 32, torch.float32, True, 100, 30.0, None, False),
+    (512, 4, 2, 26, 26, 32, torch.bfloat16, True, 0, 0.0, None, False),   # env step
+    # the tensor-core regime beyond d = 32; T off multiples of 16; G in {1, 2, 4}
+    (2, 4, 4, 37, 37, 64, torch.bfloat16, True, 0, 0.0, None, False),
+    (2, 4, 2, 50, 50, 128, torch.bfloat16, True, 16, 20.0, None, False),
+    (2, 8, 2, 65, 65, 256, torch.bfloat16, True, 0, 0.0, 60, False),
+    (2, 4, 1, 37, 65, 64, torch.bfloat16, False, 0, 0.0, None, True),     # Tq != Tk
+    (2, 4, 2, 65, 65, 32, torch.bfloat16, True, 8, 30.0, 50, False),      # rows with no live key
+    (2, 4, 4, 50, 50, 32, torch.float32, True, 0, 0.0, None, False),
+    (1, 8, 2, 65, 37, 64, torch.float32, False, 0, 10.0, None, False),
 ]
 
 
@@ -120,7 +129,8 @@ def test_flash_rows_without_live_keys_are_zero(gen):
     assert (o[:, :, dead] == 0).all() and (lse[:, :, dead] == 0).all()
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "fp16", "last_dim_stride"])
+@pytest.mark.parametrize("bad", ["head_dim", "fp16", "last_dim_stride", "misaligned_base",
+                                 "misaligned_rows"])
 def test_flash_kernel_rejects_what_it_does_not_take(gen, bad):
     d = 48 if bad == "head_dim" else 32
     q = torch.randn(1, 2, 8, d, generator=gen, device="cuda")
@@ -128,8 +138,16 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen, bad):
         q = q.half()
     if bad == "last_dim_stride":
         q = torch.randn(1, 2, 8, 2 * d, generator=gen, device="cuda")[..., ::2]
+    if bad == "misaligned_base":
+        q = torch.randn(16 * d + 1, generator=gen, device="cuda")[1:].view(1, 2, 8, d)
+    if bad == "misaligned_rows":     # rows 33 floats apart: not 16-byte multiples
+        q = torch.randn(1, 8, 2, d + 1, generator=gen, device="cuda")[..., :d].transpose(1, 2)
     with pytest.raises((ValueError, TypeError)):
         flash_attention_fwd(q, q, q, scale=1.0)
+    if bad.startswith("misaligned"):
+        lse = torch.zeros(1, 2, 8, device="cuda")
+        with pytest.raises(ValueError):
+            flash_attention_bwd_dkv(q, q, q, q, lse, lse, scale=1.0)
 
 
 def _perturb_norms(tree, gen):
@@ -179,6 +197,14 @@ FLASH_BWD = [
     (2, 8, 4, 37, 37, 256, torch.float32, True, 0, 0.0, None),       # G=2, d=256
     (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40),         # rows with no live key
     (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None),        # Tq != Tk
+    (512, 4, 2, 26, 26, 32, torch.bfloat16, True, 0, 0.0, None),    # env step
+    # the tensor-core regime beyond d = 32; T off multiples of 16; G in {1, 2, 4}
+    (2, 4, 4, 37, 37, 64, torch.bfloat16, True, 0, 0.0, None),
+    (2, 4, 2, 50, 50, 128, torch.bfloat16, True, 16, 20.0, None),
+    (2, 8, 2, 65, 65, 256, torch.bfloat16, True, 0, 0.0, 60),
+    (2, 4, 1, 37, 65, 64, torch.bfloat16, False, 0, 0.0, None),     # Tq != Tk
+    (2, 4, 2, 65, 65, 32, torch.float32, True, 8, 30.0, 50),
+    (1, 8, 2, 50, 37, 32, torch.float32, False, 0, 0.0, None),
 ]
 
 

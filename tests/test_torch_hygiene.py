@@ -1,8 +1,8 @@
 """The port's boundaries: no JAX in it, CUDA by default, kernels from source.
 
 - No module of `repro_torch`, and none of `chip_smoke.py`,
-  `tools/profile_infserver.py`, `tools/profile_learner.py` and
-  `tests/test_torch_cuda.py` (which runs
+  `tools/profile_infserver.py`, `tools/profile_learner.py`,
+  `tools/time_flash.py` and `tests/test_torch_cuda.py` (which runs
   on the card's machine, where there is no jax), imports jax or the JAX
   package `repro` (an AST walk, and a fresh interpreter that imports the
   whole port and finds no jax in `sys.modules`).
@@ -43,6 +43,7 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tools" / "profile_infserver.py",
                                           ROOT / "tools" / "profile_learner.py",
+                                          ROOT / "tools" / "time_flash.py",
                                           ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)

@@ -22,7 +22,13 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_fwd as jax_flash_fwd
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import (
+    aligned,
+    check_aligned,
+    check_head_dim,
+    flash_attention,
+    flash_attention_fwd,
+)
 from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -159,6 +165,64 @@ def test_flash_wrapper_rejects_bad_inputs(bad):
         q = q[0]
     with pytest.raises((ValueError, TypeError)):
         flash_attention_fwd(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_head_dims_the_kernels_take(d):
+    check_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [8, 16, 48, 96, 512])
+def test_head_dims_the_kernels_refuse(d):
+    with pytest.raises(ValueError):
+        check_head_dim(d)
+
+
+def _bthd(dtype, B=2, T=26, H=4, d=32, pad=0):
+    """The model's (B, T, H, d) activations as a (B, H, T, d) view; `pad`
+    extra elements per head row leave the head dim a strided slice."""
+    return torch.zeros(B, T, H, d + pad, dtype=dtype)[..., :d].transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("make", [
+    lambda dt: torch.zeros(2, 4, 26, 32, dtype=dt),            # contiguous (B, H, T, d)
+    lambda dt: _bthd(dt),                                       # the model's strided view
+    lambda dt: _bthd(dt, pad=8),                                # rows of d + 8: 16 bytes apart in bf16
+    lambda dt: torch.zeros(3, 1, 5, 64, dtype=dt)[1:],          # offset by whole batches
+    lambda dt: torch.zeros(1, 1, 7, 40, dtype=dt)[..., :32],    # size-1 dims' strides unused
+], ids=["bhtd", "bthd", "padded-rows", "batch-offset", "size-1-dims"])
+def test_aligned_accepts_16_byte_rows(make, dtype):
+    t = make(dtype)
+    assert aligned(t)
+    check_aligned(t, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("make", [
+    lambda dt: torch.zeros(2 * 4 * 26 * 32 + 1, dtype=dt)[1:].view(2, 4, 26, 32),  # base + 1 element
+    lambda dt: torch.zeros(2, 26, 4, 33, dtype=dt)[..., :32].transpose(1, 2),      # odd row pitch
+    lambda dt: torch.zeros(2, 26, 4, 34, dtype=dt)[..., :32].transpose(1, 2),      # pitch of 34 elements
+    lambda dt: torch.zeros(2, 4, 26, 64, dtype=dt)[..., ::2],                      # strided head dim
+    lambda dt: torch.zeros(2, 4, 32, 26, dtype=dt).transpose(2, 3),                # (d, T) storage
+], ids=["base-offset", "odd-pitch", "pitch-34", "head-dim-step", "transposed"])
+def test_aligned_refuses_what_cp_async_cannot_copy(make, dtype):
+    t = make(dtype)
+    assert not aligned(t)
+    with pytest.raises(ValueError):
+        check_aligned(torch.zeros(1, 1, 2, 32, dtype=dtype), t)
+
+
+def test_cpu_path_takes_unaligned_views():
+    """Only the kernels need 16-byte rows: the plain version on the CPU
+    takes any view, so the alignment rule costs the CPU path nothing."""
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(rng.standard_normal((1, 9, 2, 33)).astype(np.float32))
+    q = base[..., :32].transpose(1, 2)
+    assert not aligned(q)
+    o, lse = flash_attention_fwd(q, q, q, scale=0.2)
+    ro, rlse = attention_fwd_ref(q.contiguous(), q.contiguous(), q.contiguous(), scale=0.2)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
 
 
 def test_cpu_calls_launch_nothing():
