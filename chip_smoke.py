@@ -10,9 +10,10 @@ drives the port's two paths on the card:
   against their plain PyTorch versions at the serving shapes, serves the
   league's policy nets (tleague-policy-s, tleague-policy-m) through the
   InfServer, and checks the card's forward against the port's CPU forward;
-- learning: holds the learner's kernels (the three flash-attention backward
-  kernels and the reverse scan, forward and closed-form backward) against
-  their plain versions at the train steps' shapes, runs 10 env train steps
+- learning: holds the learner's kernels (the two flash-attention backward
+  kernels, dq with the delta preprocess in its prologue and dk/dv, and the
+  reverse scan, forward and closed-form backward) against their plain
+  versions at the train steps' shapes, runs 10 env train steps
   (tleague-policy-s, PPO + GAE, 32 x 16 rows of 26-token observations, bf16
   compute) and 3 sequence train steps (V-trace over 4096 tokens, window
   512, softcap 30, fp32, remat), and checks step 1 on the card against the
@@ -154,6 +155,9 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+    # torch.compile's caches (the flex_attention yardstick) stay in the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -173,7 +177,6 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
-        flash_attention_bwd_preprocess,
     )
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_grads_ref,
@@ -233,6 +236,37 @@ def main() -> int:
         t_ops = flops / PEAK_FLOPS[dtype_name]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+    def flex_ms(q, k, v, do, scale, window, cap):
+        """The library yardstick where no single SDPA call computes the same
+        function (a causal window with a softcap): torch.compile'd
+        flex_attention, the softcap as score_mod and the window as a block
+        mask. Returns {fwd_ms, bwd_ms (dq, dk and dv in one call), max_abs_err
+        of its o against the plain forward} or {error} where it does not
+        compile; the port never calls it."""
+        try:
+            from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+            def mask_mod(b, h, qi, ki):
+                return (ki <= qi) & (qi - ki < window)
+
+            def score_mod(score, b, h, qi, ki):
+                return cap * torch.tanh(score / cap)
+
+            T = q.shape[2]
+            block_mask = create_block_mask(mask_mod, None, None, T, T, device=q.device)
+            flex = torch.compile(flex_attention)
+            run = lambda *a: flex(*a, score_mod=score_mod, block_mask=block_mask, scale=scale,
+                                  enable_gqa=True)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = run(*leaves)
+            ro, _ = attention_fwd_ref(q, k, v, scale=scale, causal=True, window=window, cap=cap)
+            return {"fwd_ms": device_ms(lambda: run(q, k, v)),
+                    "bwd_ms": device_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                                    retain_graph=True)),
+                    "max_abs_err": (out.detach() - ro).abs().max().item()}
+        except Exception as e:                # a yardstick only: record why it is missing
+            return {"error": f"{type(e).__name__}: {e}"[:400]}
+
     gen = torch.Generator(device=dev).manual_seed(0)
     dname = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     results = {"rmsnorm": [], "flash_attention_fwd": []}
@@ -244,6 +278,8 @@ def main() -> int:
                  ((ROWS * OBS_LEN, 256), 1, torch.bfloat16, "policy-m serving"),
                  ((2, ROWS // 2, OBS_LEN, 128), 2, torch.bfloat16, "policy-s grouped"),
                  ((2, ROWS // 2, OBS_LEN, 256), 2, torch.bfloat16, "policy-m grouped"),
+                 ((ENV_B * ENV_T * OBS_LEN, 128), 1, torch.bfloat16, "learner env shape"),
+                 ((SEQ_T, 128), 1, torch.float32, "learner seq shape"),
                  ((37, 96), 1, torch.float32, "odd")]
     for (shape, models, dtype, label) in rms_cases:
         d = shape[-1]
@@ -279,6 +315,7 @@ def main() -> int:
         return int(mask.sum().item())
 
     S, M = "strided", "contiguous"
+    flex_seq = {}
     flash_cases = [
         # B, H, KV, Tq, Tk, d, dtype, mixed, causal, window, cap, kv_len, layout, label
         (ROWS, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
@@ -337,6 +374,11 @@ def main() -> int:
         if causal and not window and not cap and kv_len is None and Tq == Tk:
             library_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True))
+        if label == "learner seq shape":
+            flex_seq = flex_ms(q, k, v, torch.randn(q.shape, generator=gen, device=dev).to(dtype),
+                               d ** -0.5, window, cap)
+            emit("flex_attention", label=label, **flex_seq)
+            library_ms = flex_seq.get("fwd_ms")
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size() \
             + lse.numel() * 4
         flops = 4 * d * B * H * live_pairs(Tq, Tk, causal, window, kv_len)
@@ -387,6 +429,9 @@ def main() -> int:
     emit("kernel_edges", max_abs_err={k: e for k, (e, _) in edge.items()})
 
     # -- 3b. the learner's kernels against their plain versions ---------------
+    # The delta preprocess runs in dq's prologue: its entry holds the fused
+    # kernel's delta against the plain preprocess, with the fused kernel's
+    # time and the preprocess's own bound, plain and library times.
     for name in ("flash_attention_bwd_preprocess", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "reverse_discounted_scan_p"):
         results[name] = []
@@ -403,6 +448,8 @@ def main() -> int:
         (2, 4, 1, 50, 50, 32, torch.bfloat16, True, 8, 0.0, None, "bhtd", "bf16, G=4, window"),
         (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40, "bthd",
          "tail, rows with no live key"),
+        (1, 4, 2, 100, 100, 32, torch.bfloat16, True, 8, 30.0, 40, "bthd",
+         "bf16, a q tile with no live key"),
         (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None, "bthd", "bidirectional, Tq != Tk"),
         # the tensor-core regime beyond d = 32, odd T, G in {1, 2, 4}
         (2, 4, 4, 37, 37, 64, torch.bfloat16, True, 0, 0.0, None, "bthd", "bf16, d=64, G=1"),
@@ -426,8 +473,7 @@ def main() -> int:
         o, lse = flash_attention_fwd(q, k, v, **kw)
 
         def backward():
-            delta = flash_attention_bwd_preprocess(o, do)
-            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
             return (delta, dq) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
 
         got = backward()
@@ -447,45 +493,52 @@ def main() -> int:
         delta = got[0]
         esz = q.element_size()
         live = live_pairs(Tq, Tk, causal, window, kv_len)
+        # bytes: each input read once, each output written once. dq reads q,
+        # k, v, o, dO and lse and writes dq and delta; its operations are the
+        # recompute (6 d per live pair) and the prologue's rowsum (2 d per row)
         io = {"flash_attention_bwd_preprocess": (2 * o.numel() * esz + delta.numel() * 4,
                                                  2 * d * B * H * Tq),
-              "flash_attention_bwd_dq": ((2 * q.numel() + k.numel() + v.numel() + do.numel()) * esz
-                                         + 2 * lse.numel() * 4, 6 * d * B * H * live),
+              "flash_attention_bwd_dq": ((2 * q.numel() + k.numel() + v.numel() + o.numel()
+                                          + do.numel()) * esz + 2 * lse.numel() * 4,
+                                         6 * d * B * H * live + 2 * d * B * H * Tq),
               "flash_attention_bwd_dkv": ((q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel())
                                           * esz + 2 * lse.numel() * 4, 8 * d * B * H * live)}
+        fused_ms = device_ms(lambda: flash_attention_bwd_dq(q, k, v, o, do, lse, **kw))
         calls = {"flash_attention_bwd_preprocess": (
-                     lambda: flash_attention_bwd_preprocess(o, do),
-                     lambda: attention_bwd_preprocess_ref(o, do),
+                     fused_ms, lambda: attention_bwd_preprocess_ref(o, do),
                      lambda: torch.einsum("bhtd,bhtd->bht", o, do)),
                  "flash_attention_bwd_dq": (
-                     lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
-                     lambda: attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw), None),
+                     fused_ms, lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw)[:2], None),
                  "flash_attention_bwd_dkv": (
-                     lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                     device_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)),
                      lambda: attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw), None)}
-        sdpa_ms = None
+        whole_bwd_ms = None
         if causal and not window and not cap and kv_len is None and Tq == Tk:
             # the library's whole backward (dq, dk and dv in one call)
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
             ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=d ** -0.5,
                                                 enable_gqa=True)
-            sdpa_ms = device_ms(lambda: torch.autograd.grad(ol, (qs, ks, vs), do,
-                                                            retain_graph=True))
+            whole_bwd_ms = device_ms(lambda: torch.autograd.grad(ol, (qs, ks, vs), do,
+                                                                 retain_graph=True))
+        elif label == "learner seq shape":
+            whole_bwd_ms = flex_seq.get("bwd_ms")  # phase 3's flex_attention, this shape
         # errors relative to max(1, max |plain|): delta, dq, max of dk and dv
         err_of = {"flash_attention_bwd_preprocess": errs["delta"],
                   "flash_attention_bwd_dq": errs["dq"],
                   "flash_attention_bwd_dkv": max(errs["dk"], errs["dv"])}
         tol_of = {"flash_attention_bwd_preprocess": BWD_TOL["float32"],
                   "flash_attention_bwd_dq": tol, "flash_attention_bwd_dkv": tol}
-        for name, (kernel_fn, plain_fn, library_fn) in calls.items():
+        for name, (ms, plain_fn, library_fn) in calls.items():
             nbytes, flops = io[name]
             b_ms, b_by = bound(nbytes, flops, dname[dtype])
-            library_ms = device_ms(library_fn) if library_fn else sdpa_ms
+            library_ms = device_ms(library_fn) if library_fn else whole_bwd_ms
             r = dict(shape=[B, H, KV, Tq, Tk, d], strided=layout == "bthd",
                      dtype=dname[dtype], window=window, cap=cap, kv_len=kv_len,
                      label=label, max_abs_err=err_of[name], tol=tol_of[name],
-                     ms=device_ms(kernel_fn), plain_ms=device_ms(plain_fn),
+                     ms=ms, plain_ms=device_ms(plain_fn),
                      library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            if name == "flash_attention_bwd_preprocess":
+                r["note"] = "runs inside flash_attention_bwd_dq: ms is the fused kernel's"
             results[name].append(r)
             emit("kernel", name=name, **r)
 
@@ -523,8 +576,8 @@ def main() -> int:
         emit("kernel", name="reverse_discounted_scan_p", **r)
 
     # -- 4. serve the policy nets through the InfServer -----------------------
-    counters = (rmsnorm, flash_attention_fwd, flash_attention_bwd_preprocess,
-                flash_attention_bwd_dq, flash_attention_bwd_dkv, reverse_discounted_scan_p)
+    counters = (rmsnorm, flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+                reverse_discounted_scan_p)
     serve_kernels = ("rmsnorm", "flash_attention_fwd")
     serve = {}
     for c in counters:
@@ -649,18 +702,17 @@ def main() -> int:
 
     # -- 6. train: env steps and sequence steps on the card ---------------------
     # Per step, forward: 2 RMSNorms per layer and the final one, 1 attention
-    # per layer; backward: 1 preprocess, dq and dk/dv per layer; 1 scan (GAE
+    # per layer; backward: dq (which computes delta in its prologue, so the
+    # preprocess has no launch of its own) and dk/dv per layer; 1 scan (GAE
     # or V-trace; its backward is not on the path: the targets are detached).
     # remat runs each unit's forward again in the backward.
     cfg_env = get_arch("tleague-policy-s")
     cfg_seq = seq_config(get_arch)
     L = cfg_env.num_layers
     per_step = {
-        "env": {"rmsnorm": 2 * L + 1, "flash_attention_fwd": L,
-                "flash_attention_bwd_preprocess": L, "flash_attention_bwd_dq": L,
+        "env": {"rmsnorm": 2 * L + 1, "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1},
-        "seq": {"rmsnorm": 4 * L + 1, "flash_attention_fwd": 2 * L,
-                "flash_attention_bwd_preprocess": L, "flash_attention_bwd_dq": L,
+        "seq": {"rmsnorm": 4 * L + 1, "flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1}}
     train = {}
     for c in counters:
@@ -701,7 +753,8 @@ def main() -> int:
                        "metrics": {k: v.item() for k, v in metrics.items()}}
         emit("train", kind=which, arch=cfg.name, steps=n_steps,
              batch=[ENV_B, ENV_T, OBS_LEN] if which == "env" else [1, SEQ_T],
-             compute_dtype=cfg.compute_dtype, launches_per_step=per_step[which], **train[which])
+             compute_dtype=cfg.compute_dtype, launches_per_step=per_step[which],
+             kernel_launches_per_step=sum(per_step[which].values()), **train[which])
     launches["train"] = {c.__name__: c.launches for c in counters}
     for name, n in launches["train"].items():
         check(n > 0, f"{name} was never launched on the learner path")
@@ -742,7 +795,8 @@ def main() -> int:
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
                    "learner seq shape", "GAE, env step", "V-trace, seq step")
     per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
-                       "env_step": per_step["env"][name], "seq_step": per_step["seq"][name]}
+                       "env_step": per_step["env"].get(name, 0),
+                       "seq_step": per_step["seq"].get(name, 0)}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -751,8 +805,9 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         head = results[name][0]   # the policy-s serving shape; the env step's for the learner's
-        by_path = {path: counts[name] for path, counts in launches.items()}
+        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": src,
+                        **({"note": head["note"]} if "note" in head else {}),
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "launches_per_unit": per_unit[name],
                         "max_abs_err": max(r["max_abs_err"] for r in results[name]),

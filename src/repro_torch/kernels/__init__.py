@@ -3,8 +3,8 @@ beside its plain PyTorch version (`ref.py`):
 
   flash_attention - fused online-softmax attention forward, GQA, causal +
                     sliding-window + logit-softcap aware (csrc/flash_fwd.cu),
-                    and its FlashAttention-2 backward: delta preprocess, dq
-                    and dk/dv (csrc/flash_bwd.cu).
+                    and its FlashAttention-2 backward: dq, with the delta
+                    preprocess in its prologue, and dk/dv (csrc/flash_bwd.cu).
   rmsnorm         - fused RMS normalization (csrc/rmsnorm.cu).
   vtrace_scan     - reverse discounted scan behind GAE and V-trace
                     (csrc/reverse_scan.cu), with its closed-form gradient.

@@ -41,11 +41,9 @@ SIGNATURES = {
     # scale, causal, window, cap, kv_len, is_bf16, mixed, stream
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
                  + [_I] * 12 + [_F, _I, _I, _F, _I, _I, _I, _P],
-    # o, dO, delta, B, H, Tq, D, o/dO strides (batch, head, time), is_bf16, stream
-    "flash_bwd_preprocess": [_P, _P, _P, _I, _I, _I, _I] + [_I] * 6 + [_I, _P],
-    # q, k, v, dO, lse, delta, dq, B, H, KV, Tq, Tk, D,
-    # q/k/v/dO/dq strides, scale, causal, window, cap, kv_len, is_bf16, stream
-    "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_I] * 15 + [_F, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, dO, lse, delta (written), dq, B, H, KV, Tq, Tk, D,
+    # q/k/v/o/dO/dq strides, scale, causal, window, cap, kv_len, is_bf16, stream
+    "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
     # q, k, v, dO, lse, delta, dk, dv, B, H, KV, Tq, Tk, D,
     # q/k/v/dO/dk/dv strides, scale, causal, window, cap, kv_len, is_bf16, stream
     "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],

@@ -68,6 +68,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Every committed group but the newest N has landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ROWS rows of D elements into shared memory (row pitch LD elements) by a
 // block of THREADS threads, with 16-byte cp.async; row_ptr(i) is row i's
 // address, or null for a row past the end, which is zero-filled.

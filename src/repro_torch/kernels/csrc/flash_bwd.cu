@@ -1,9 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a): the FlashAttention-2
-// recompute scheme in three kernels.
+// recompute scheme in two kernels.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_bwd_preprocess -> _bwd_preprocess_kernel:
-//     delta = rowsum(dO * O), fp32 (B, H, Tq);
+//     delta = rowsum(dO * O), fp32 (B, H, Tq), here the prologue of dq;
 //   flash_attention_bwd_dq -> _bwd_dq_kernel, and
 //   flash_attention_bwd_dkv -> _bwd_dkv_kernel, with the tile math of
 //   _tile_grads: s = q k^T * scale, softcapped as t = tanh(s / cap),
@@ -15,75 +15,80 @@
 // window 512, head_dim 32, fp32) the recompute: ~6 d flops per live
 // (q, k) pair in the dq pass and ~8 d in the dk/dv pass, on the CUDA cores
 // in IEEE fp32 (67 TFLOP/s). At the env shape (T = 26, 512 sequences,
-// bf16) device memory: each pass reads q, k, v, dO and writes its
-// gradients once, ~17 MB in all.
+// bf16) device memory: dq reads q, k, v, o, dO and writes dq and delta
+// (~17 MB), dk/dv reads q, k, v, dO and writes dk, dv (~14 MB).
 //
-// Design:
-// - preprocess: one warp per row; o is read as the forward stored it (in
-//   q's dtype), as _bwd_preprocess_kernel reads it.
-// - dq (simple and right first): one 128-thread block per (q tile of 32
-//   rows, head, batch), all arithmetic IEEE fp32 on the CUDA cores with
-//   inputs staged as fp32. Each warp owns 8 query rows; for a row, lane j
-//   recomputes the score of key j of the staged KV tile and the warp
-//   broadcasts ds_j with shuffles into the row's D/32 dq columns per lane,
-//   accumulated in registers. The loop visits live KV tiles only: up to
-//   the diagonal when causal, from the window's horizon when windowed, up
-//   to kv_len (the _tile_live skips).
+// Design. Both kernels stack the G query heads of a KV head position-major
+// (stacked row r is position r / G of query head kvh * G + r % G, as
+// flash_fwd.cu), so a block loads its KV head's K/V once for the whole
+// group (GQA reuse), and each has two regimes chosen by dtype: bf16 inputs
+// on the tensor cores (mma.sync m16n8k16, ldmatrix fragments, p and ds fed
+// as bf16 hi + lo so they keep fp32 precision as _tile_grads does), fp32
+// inputs register-tiled on the CUDA cores in IEEE fp32 (no TF32).
+// - dq: one block per (tile of stacked q rows, KV head, batch) sweeping the
+//   live KV tiles (up to the diagonal when causal, from the window's
+//   horizon, up to kv_len: the _tile_live skips), K/V double-buffered with
+//   cp.async. Its prologue computes delta for its rows from dO and o,
+//   staged with q (o, as the forward stored it in q's dtype, as
+//   _bwd_preprocess_kernel reads it, goes to the second K/V buffer, free
+//   until the second KV tile), and writes it for dk/dv: every stacked
+//   row has exactly one owner, which writes its delta whether or not the
+//   row has a live key, so no separate pass (and launch) is needed.
 // - dk/dv: one block per (KV tile, KV head, batch) looping over the live q
-//   tiles of the whole G-head group (below). Two regimes by dtype: bf16
-//   inputs on the tensor cores (mma.sync m16n8k16, p and ds fed as bf16
-//   hi + lo so they keep fp32 precision as _tile_grads does), fp32 inputs
-//   register-tiled on the CUDA cores in IEEE fp32. dk and dv are written
-//   per KV head: repro's per-query-head buffers and their group sum (a TPU
-//   grid-order constraint, kernel.py:328-332) are gone, and with no
-//   atomics the result is deterministic.
+//   tiles of the whole group (below). dk and dv are written per KV head:
+//   repro's per-query-head buffers and their group sum (a TPU grid-order
+//   constraint, kernel.py:328-332) are gone.
+// - No atomics: every output element has one owner and a fixed summation
+//   order, so two calls are bitwise equal.
 // - Masked entries get p = 0 and ds = 0 explicitly rather than through
 //   exp(NEG_INF - lse): a row with no live key has lse = 0 from the port's
 //   forward, and only the mask zeroes it.
-// - q, k, v, dO and the gradients are addressed through (batch, head, time)
-//   strides, so the model's (B, T, H, d) layout needs no transpose copy.
-//   The dk/dv kernels load with 16-byte cp.async: rows and base pointers
-//   must be 16-byte aligned (the wrapper checks).
+// - q, k, v, o, dO and the gradients are addressed through (batch, head,
+//   time) strides, so the model's (B, T, H, d) layout needs no transpose
+//   copy. Tiles load with 16-byte cp.async: rows and base pointers must be
+//   16-byte aligned (the wrapper checks).
 #include "common.cuh"
 
 namespace {
-
-constexpr int kBK = 32;                       // dq: keys per KV tile
-constexpr int kWarps = 4;                     // dq: warps per block
-constexpr int kRowsPerWarp = 8;               // dq: query rows per warp
-constexpr int kBQ = kWarps * kRowsPerWarp;    // query rows per q tile
 
 struct BwdParams {
   const void* q;
   const void* k;
   const void* v;
+  const void* o;       // dq only
   const void* dout;
   const float* lse;    // (B, H, Tq) contiguous
-  const float* delta;  // (B, H, Tq) contiguous
+  float* delta;        // (B, H, Tq) contiguous: written by dq, read by dk/dv
   void* dq;
   void* dk;
   void* dv;
   int B, H, KV, Tq, Tk;
-  long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sdob, sdoh, sdot;
+  long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot, sdob, sdoh, sdot;
   long long sgqb, sgqh, sgqt, sgkb, sgkh, sgkt, sgvb, sgvh, sgvt;  // dq, dk, dv
   float scale;
   int causal, window;
   float cap;
   int kv_len;
+  float inv_cap;  // 1 / cap (0 without a softcap)
 };
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 // The recomputed probability and score gradient of one (query, key) pair.
+// The softcap multiplies by 1 / cap, as flash_fwd.cu does, so s is the
+// forward's s bit for bit (and there is no division per pair); p is
+// exp2((s - lse) log2 e) with the product fused, ~1e-6 relative to expf.
 __device__ __forceinline__ void pair_grads(float s, float dp, float lse, float delta,
                                            bool live, const BwdParams& p, float& pj,
                                            float& ds) {
   s *= p.scale;
   float dtanh = 1.f;
   if (p.cap > 0.f) {
-    const float t = tanhf(s / p.cap);
+    const float t = tanhf(s * p.inv_cap);
     s = t * p.cap;
     dtanh = 1.f - t * t;
   }
-  pj = live ? expf(s - lse) : 0.f;  // masked: exactly 0
+  pj = live ? exp2f(fmaf(s, kLog2e, -lse * kLog2e)) : 0.f;  // masked: exactly 0
   ds = live ? pj * (dp - delta) * dtanh : 0.f;
 }
 
@@ -94,140 +99,448 @@ __device__ __forceinline__ bool pair_live(int qpos, int j, int kv_end, const Bwd
   return live;
 }
 
-// -- preprocess -------------------------------------------------------------
-
-constexpr int kPreWarps = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kPreWarps * 32)
-bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ delta, int H, int Tq, int D, int rows,
-                      long long sob, long long soh, long long sot,
-                      long long sdb, long long sdh, long long sdt) {
-  const int row = blockIdx.x * kPreWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int t = row % Tq, bh = row / Tq, h = bh % H, b = bh / H;
-  const T* orow = o + b * sob + h * soh + t * sot;
-  const T* drow = dout + b * sdb + h * sdh + t * sdt;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32)
-    acc = fmaf(repro::to_float(orow[c]), repro::to_float(drow[c]), acc);
-  acc = repro::warp_sum(acc);
-  if (lane == 0) delta[row] = acc;
-}
-
-// -- dq ---------------------------------------------------------------------
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kBQ * D + 2 * kBK * (D + 1)) * static_cast<int>(sizeof(float));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32) bwd_dq_kernel(const BwdParams p) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of the warp size");
-  constexpr int C = D / 32;  // dq columns per lane
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [kBQ][D]
-  float* dOs = Qs + kBQ * D;        // [kBQ][D]
-  float* Ks = dOs + kBQ * D;        // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);   // [kBK][D + 1]
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.sdob + h * p.sdoh;
+// KV tile kt (BN keys) of K and V into shared memory (zeros past Tk).
+template <typename T, int D, int BN, int LD, int THREADS>
+__device__ __forceinline__ void stage_kv_tile(const BwdParams& p, int b, int kvh, int kt,
+                                              T* Kd, T* Vd) {
   const T* kb = static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh;
   const T* vb = static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh;
-  const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Tq;
+  const int k0 = kt * BN, Tk = p.Tk;
+  const long long skt = p.skt, svt = p.svt;
+  repro::stage_rows<T, D, BN, LD, THREADS>(Kd, [=](int i) -> const T* {
+    return k0 + i < Tk ? kb + (k0 + i) * skt : nullptr;
+  });
+  repro::stage_rows<T, D, BN, LD, THREADS>(Vd, [=](int i) -> const T* {
+    return k0 + i < Tk ? vb + (k0 + i) * svt : nullptr;
+  });
+}
 
-  for (int idx = threadIdx.x; idx < kBQ * D; idx += blockDim.x) {
-    const int r = idx / D, c = idx % D, t = q0 + r;
-    const bool in = t < p.Tq;
-    Qs[idx] = in ? repro::to_float(qb[t * p.sqt + c]) : 0.f;
-    dOs[idx] = in ? repro::to_float(dob[t * p.sdot + c]) : 0.f;
-  }
-  float lse[kRowsPerWarp], delta[kRowsPerWarp];
+// -- dq, with delta in its prologue ------------------------------------------
+
+// Live keys [lo, hi) of query positions [t_min, t_max], as flash_fwd.cu.
+__device__ __forceinline__ void key_range(const BwdParams& p, int t_min, int t_max, int& lo,
+                                          int& hi) {
+  hi = min(p.Tk, p.kv_len);
+  if (p.causal) hi = min(hi, t_max + 1);
+  lo = p.window > 0 ? max(0, t_min - p.window + 1) : 0;
+}
+
+// (b, query head, position) row of lse and delta of stacked row r.
+__device__ __forceinline__ long long stat_row(const BwdParams& p, int b, int kvh, int r) {
+  const int G = p.H / p.KV;
+  return (static_cast<long long>(b) * p.H + kvh * G + r % G) * p.Tq + r / G;
+}
+
+// a . b over one 16-byte chunk, in fp32, added to acc in element order.
+__device__ __forceinline__ float dot_chunk(const float* a, const float* b, float acc) {
+  return repro::dot4(*reinterpret_cast<const float4*>(a), *reinterpret_cast<const float4*>(b),
+                     acc);
+}
+
+__device__ __forceinline__ float dot_chunk(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                           float acc) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const unsigned xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int qpos = q0 + warp * kRowsPerWarp + i;
-    lse[i] = qpos < p.Tq ? p.lse[row0 + qpos] : 0.f;
-    delta[i] = qpos < p.Tq ? p.delta[row0 + qpos] : 0.f;
+  for (int u = 0; u < 4; ++u) {
+    const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[u]));
+    const float2 fy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[u]));
+    acc = fmaf(fx.y, fy.y, fmaf(fx.x, fy.x, acc));
   }
+  return acc;
+}
 
-  // live key range [lo, hi) for the whole q tile, as flash_fwd.cu
-  const int q_end = min(q0 + kBQ, p.Tq);
+// The prologue: delta = rowsum(dO * O) of stacked rows [r0, r0 + BM) from
+// the staged O and dO tiles (pitch LD), in 16-byte chunks. W lanes share a
+// row and reduce with shuffles in a fixed order. Writes Ds[BM] (0 past the
+// end) and p.delta for every row of the block before R, live keys or not.
+template <typename T, int D, int BM, int LD, int THREADS>
+__device__ __forceinline__ void row_deltas(const BwdParams& p, int b, int kvh, int r0,
+                                           const T* Os, const T* dOs, float* Ds) {
+  constexpr int E = 16 / sizeof(T);     // elements per chunk
+  constexpr int CH = D / E;             // chunks per row
+  constexpr int W = CH < 32 ? CH : 32;  // lanes per row
+  constexpr int RPP = THREADS / W;      // rows per pass of the block
+  static_assert(BM % RPP == 0, "every lane of a warp makes the same passes");
+  const int R = p.H / p.KV * p.Tq;
+  const int sub = threadIdx.x % W;
+#pragma unroll
+  for (int pass = 0; pass < BM / RPP; ++pass) {
+    const int i = pass * RPP + threadIdx.x / W, r = r0 + i;
+    float acc = 0.f;
+#pragma unroll
+    for (int m = 0; m < CH / W; ++m) {  // rows past the end are staged as zeros
+      const int c = i * LD + (sub + m * W) * E;
+      acc = dot_chunk(Os + c, dOs + c, acc);
+    }
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(repro::kFullMask, acc, off);
+    if (sub == 0) {
+      Ds[i] = acc;
+      if (r < R) p.delta[stat_row(p, b, kvh, r)] = acc;
+    }
+  }
+}
+
+// Stage stacked rows [r0, r0 + BM) of q, dO and o (zeros past the end).
+template <typename T, int D, int BM, int LD, int THREADS>
+__device__ __forceinline__ void stage_q_rows(const BwdParams& p, int b, int kvh, int r0,
+                                             T* Qs, T* dOs, T* Os) {
+  const int G = p.H / p.KV, R = G * p.Tq;
+  auto rows = [=](const void* base, long long sb, long long sh, long long st) {
+    const T* at = static_cast<const T*>(base) + b * sb + kvh * G * sh;
+    return [=](int i) -> const T* {
+      const int r = r0 + i;
+      return r < R ? at + (r % G) * sh + (r / G) * st : nullptr;
+    };
+  };
+  repro::stage_rows<T, D, BM, LD, THREADS>(Qs, rows(p.q, p.sqb, p.sqh, p.sqt));
+  repro::stage_rows<T, D, BM, LD, THREADS>(dOs, rows(p.dout, p.sdob, p.sdoh, p.sdot));
+  repro::stage_rows<T, D, BM, LD, THREADS>(Os, rows(p.o, p.sob, p.soh, p.sot));
+}
+
+// bf16 inputs: tensor cores. 4 warps of 16 stacked rows (64 rows: the env
+// step's 2 x 26 rows of a group are one block, 1024 blocks), KV tiles of 32
+// keys (T = 26 is one tile). A tile is computed in two halves of 16 keys,
+// one after the other: S = Q K^T and dP = dO V^T from ldmatrix fragments,
+// then dS on the accumulator fragments, then dQ += dS K with dS as the A
+// fragment straight from registers (bf16 hi + lo, two MMAs) and K as B
+// fragments by ldmatrix.trans, as the forward's P V takes V. Halves keep
+// the kernel at 64 registers, so 8 blocks fit an SM and the env step's 1024
+// blocks run in one wave (whole 32-key tiles took 79 registers and two
+// waves). A warp skips a tile in which none of its rows has a live key.
+constexpr int kDqBf16Threads = 128;
+
+template <int D> struct DqBf16 {
+  static constexpr int BM = 64, BN = 32, LD = D + 8;  // 16*odd-byte pitch: ldmatrix conflict-free
+  static constexpr int smem = (2 * BM + 4 * BN) * LD * 2 + BM * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p) {
+  using T = __nv_bfloat16;
+  constexpr int THREADS = kDqBf16Threads;
+  constexpr int BM = DqBf16<D>::BM, BN = DqBf16<D>::BN, LD = DqBf16<D>::LD;
+  constexpr int DT = D / 8;   // dq n-tiles per warp
+  extern __shared__ float4 smem4[];
+  static_assert(BM <= 2 * BN, "o is staged in the second K/V buffer");
+  T* Qs = reinterpret_cast<T*>(smem4);                     // [BM][LD]
+  T* dOs = Qs + BM * LD;                                   // [BM][LD]
+  T* KVs = dOs + BM * LD;                                  // [2][K, V][BN][LD]; o in [1]
+  float* Ds = reinterpret_cast<float*>(KVs + 4 * BN * LD);  // [BM]
+
+  const int b = blockIdx.z, kvh = blockIdx.y, r0 = blockIdx.x * BM;
+  const int G = p.H / p.KV, R = G * p.Tq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+
+  stage_q_rows<T, D, BM, LD, THREADS>(p, b, kvh, r0, Qs, dOs, KVs + 2 * BN * LD);
+  repro::cp_async_commit();
+  int lo, hi;
+  key_range(p, r0 / G, (min(r0 + BM, R) - 1) / G, lo, hi);
+  const int kt_lo = lo / BN, kt_hi = hi > lo ? (hi + BN - 1) / BN : kt_lo;
+  auto stage_kv = [&](int kt, int buf) {
+    T* K = KVs + buf * 2 * BN * LD;
+    stage_kv_tile<T, D, BN, LD, THREADS>(p, b, kvh, kt, K, K + BN * LD);
+  };
+  if (kt_lo < kt_hi) stage_kv(kt_lo, 0);
+  repro::cp_async_commit();
+
+  // this warp's rows and their own live keys, to skip a tile they do not see
+  const int wr0 = r0 + warp * 16;
+  int wlo = 0, whi = 0;
+  if (wr0 < R) key_range(p, wr0 / G, (min(wr0 + 16, R) - 1) / G, wlo, whi);
+  const int ra = wr0 + gq, rb = ra + 8;  // this lane's two rows
+  const int ta = ra < R ? ra / G : -1, tb = rb < R ? rb / G : -1;
   const int kv_end = min(p.Tk, p.kv_len);
-  int hi = kv_end;
-  if (p.causal) hi = min(hi, q_end);
-  const int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int kt_lo = lo / kBK;
-  const int kt_hi = hi > lo ? (hi + kBK - 1) / kBK : kt_lo;
+  const float lse_a = ta >= 0 ? p.lse[stat_row(p, b, kvh, ra)] : 0.f;
+  const float lse_b = tb >= 0 ? p.lse[stat_row(p, b, kvh, rb)] : 0.f;
 
-  float acc[kRowsPerWarp][C];
+  repro::cp_async_wait<1>();  // Q, dO and O landed (the first KV tile may not have)
+  __syncthreads();
+  row_deltas<T, D, BM, LD, THREADS>(p, b, kvh, r0, KVs + 2 * BN * LD, dOs, Ds);
+  __syncthreads();  // delta is in Ds; O's buffer is free for KV tile kt_lo + 1
+  const float delta_a = Ds[warp * 16 + gq], delta_b = Ds[warp * 16 + gq + 8];
+
+  float dq[DT][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  for (int n = 0; n < DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    __syncthreads();  // the previous tile is consumed (and Qs, dOs are staged)
-    const int k0 = kt * kBK;
-    for (int idx = threadIdx.x; idx < kBK * D; idx += blockDim.x) {
-      const int r = idx / D, c = idx % D, t = k0 + r;
-      const bool in = t < p.Tk;
-      Ks[r * (D + 1) + c] = in ? repro::to_float(kb[t * p.skt + c]) : 0.f;
-      Vs[r * (D + 1) + c] = in ? repro::to_float(vb[t * p.svt + c]) : 0.f;
-    }
-    __syncthreads();
+    const int buf = (kt - kt_lo) & 1;
+    repro::cp_async_wait_all();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt_hi) stage_kv(kt + 1, buf ^ 1);
+    repro::cp_async_commit();
+    const int k0 = kt * BN;
+    if (k0 >= whi || k0 + BN <= wlo) continue;  // warp-uniform: no live key for these rows
+    const T* Kt = KVs + buf * 2 * BN * LD;
+    const T* Vt = Kt + BN * LD;
 
-    const int j = k0 + lane;  // this lane's key
-    const float* kr = Ks + lane * (D + 1);
-    const float* vr = Vs + lane * (D + 1);
+    // two halves of 16 keys, one after the other: half the S and dP
+    // accumulators live at a time
+#pragma unroll 1
+    for (int hk = 0; hk < BN / 16; ++hk) {
+      float s[2][4], dp[2][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp * kRowsPerWarp + i, qpos = q0 + r;
-      if (qpos < p.Tq) {  // warp-uniform
-        const bool live = pair_live(qpos, j, kv_end, p);
-        if (__any_sync(repro::kFullMask, live)) {  // skip a row's dead tile
-          const float* qr = Qs + r * D;
-          const float* dor = dOs + r * D;
-          float s = 0.f, dp = 0.f;
-#pragma unroll 8
-          for (int e = 0; e < D; ++e) {
-            s = fmaf(qr[e], kr[e], s);
-            dp = fmaf(dor[e], vr[e], dp);
-          }
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16
+                          + (lane >> 4) * 8;
+        const int b_off = (hk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16
+                          + ((lane >> 3) & 1) * 8;
+        unsigned aq[4], ad[4], bk[4], bv[4];
+        repro::ldmatrix_x4(aq, Qs + a_off);
+        repro::ldmatrix_x4(bk, Kt + b_off);
+        repro::mma_bf16(s[0], aq, bk[0], bk[1]);
+        repro::mma_bf16(s[1], aq, bk[2], bk[3]);
+        repro::ldmatrix_x4(ad, dOs + a_off);
+        repro::ldmatrix_x4(bv, Vt + b_off);
+        repro::mma_bf16(dp[0], ad, bv[0], bv[1]);
+        repro::mma_bf16(dp[1], ad, bv[2], bv[3]);
+      }
+      // element e of n-tile n: row (e < 2 ? ra : rb), key k0 + 16 hk + 8 n + 2 cq + (e & 1)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = e < 2 ? ta : tb;
+          const int j = k0 + hk * 16 + n * 8 + 2 * cq + (e & 1);
+          const bool live = t >= 0 && pair_live(t, j, kv_end, p);
           float pj, ds;
-          pair_grads(s, dp, lse[i], delta[i], live, p, pj, ds);
-          float part[C];
+          pair_grads(s[n][e], dp[n][e], e < 2 ? lse_a : lse_b, e < 2 ? delta_a : delta_b, live,
+                     p, pj, ds);
+          s[n][e] = ds;
+        }
+      // dQ += dS K over these 16 keys: the dS accumulators are the A fragment
+      unsigned ah[4], al[4];
+      repro::split_bf16(s[0][0], s[0][1], ah[0], al[0]);
+      repro::split_bf16(s[0][2], s[0][3], ah[1], al[1]);
+      repro::split_bf16(s[1][0], s[1][1], ah[2], al[2]);
+      repro::split_bf16(s[1][2], s[1][3], ah[3], al[3]);
 #pragma unroll
-          for (int c = 0; c < C; ++c) part[c] = 0.f;
-#pragma unroll 8
-          for (int jj = 0; jj < kBK; ++jj) {
-            const float db = __shfl_sync(repro::kFullMask, ds, jj);
-            const float* kc = Ks + jj * (D + 1) + lane;
+      for (int n = 0; n < DT; n += 2) {
+        unsigned bk[4];
+        repro::ldmatrix_x4_trans(bk, Kt + (hk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                                         + n * 8 + (lane >> 4) * 8);
+        repro::mma_bf16(dq[n], ah, bk[0], bk[1]);
+        repro::mma_bf16(dq[n + 1], ah, bk[2], bk[3]);
+        repro::mma_bf16(dq[n], al, bk[0], bk[1]);
+        repro::mma_bf16(dq[n + 1], al, bk[2], bk[3]);
+      }
+    }
+  }
+
+  repro::cp_async_wait_all();  // no copy outlives the block (an empty sweep)
+  T* dqb = static_cast<T*>(p.dq) + b * p.sgqb + kvh * G * p.sgqh;
 #pragma unroll
-            for (int c = 0; c < C; ++c) part[c] = fmaf(db, kc[32 * c], part[c]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rb : ra, t = r ? tb : ta;
+    if (t < 0) continue;
+    T* qrow = dqb + (row % G) * p.sgqh + t * p.sgqt + 2 * cq;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<unsigned*>(qrow + n * 8) =
+          repro::pack_bf16(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
+  }
+}
+
+// fp32 inputs: register-tiled CUDA cores, IEEE fp32. 256 threads on a tile
+// of 64 stacked rows (32 positions x G = 2 at the seq step: 256 blocks at
+// T = 4096 with 2 KV heads, ~2 per SM of 132, 16 warps each) and KV tiles
+// of 32 keys. As in dk/dv, shared-memory bandwidth (one 128-byte wavefront
+// per clock against 128 FMAs) is what bounds a register-tiled fp32 product
+// here, so each phase gives a lane a micro-tile whose warp reads hit at
+// most 8 distinct 16-byte chunks per load (one wavefront):
+// - Phase 1: warp w covers keys 16 (w % 2) .. + 15 and a quarter of the
+//   rows; lane (kg, rg) = (lane % 8, lane / 8) computes S and dP for keys
+//   kg + 8 i (i < 2) and rows rg + 4 j from float4 reads of Q, dO, K and V
+//   (64 FMAs per 12 wavefronts), then dS, which goes to shared memory
+//   (pitch BN + 8: the stores of 4 rows x 8 keys hit 32 banks).
+// - Phase 2: the block's two halves take alternate groups of 4 keys;
+//   thread (rg, cg) of a half owns dq of rows rg + 16 i (i < 4) at columns
+//   4 cg + 32 c (64 FMAs per 8 wavefronts: 4 float4 reads of dS and 4 of
+//   K). At the end the second half's sums are added to the first's in a
+//   fixed order, so the result stays deterministic. Splitting the keys
+//   doubles the micro-tile (4 x 4 against 2 x 4) for one exchange per block.
+// A tile whose pairs are all live skips the per-pair masks. Larger head
+// dims take 32-row tiles (shared memory, registers). 64-key tiles (4 x 4
+// in phase 1) needed 152 registers, one block per SM, and were slower.
+constexpr int kDqF32Threads = 256;
+
+template <int D> struct DqF32 {
+  static constexpr int BM = D <= 64 ? 64 : 32, BN = 32, LD = D + 4, PLD = BN + 8;
+  static constexpr int smem = ((2 * BM + 4 * BN) * LD + BM * PLD + BM) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
+  constexpr int THREADS = kDqF32Threads;
+  constexpr int BM = DqF32<D>::BM, BN = DqF32<D>::BN, LD = DqF32<D>::LD;
+  constexpr int PLD = DqF32<D>::PLD;
+  constexpr int RW = BM / 4;   // rows per warp pair in phase 1
+  constexpr int RJ = RW / 4;   // rows per lane in phase 1
+  constexpr int KI = BN / 16;  // keys per lane in phase 1
+  constexpr int RI = BM / 16;  // rows per thread in phase 2
+  constexpr int CJ = D / 32;   // float4 columns per thread and row in phase 2
+  static_assert(BM * D <= 2 * BM * LD, "phase 2's partial sums fit in the q tile");
+  static_assert(BM <= 2 * BN, "o is staged in the second K/V buffer");
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BM][LD]
+  float* dOs = Qs + BM * LD;                    // [BM][LD]
+  float* KVs = dOs + BM * LD;                   // [2][K, V][BN][LD]; o in [1]
+  float* dSs = KVs + 4 * BN * LD;               // [BM][PLD]
+  float* Ds = dSs + BM * PLD;                   // [BM]
+
+  const int b = blockIdx.z, kvh = blockIdx.y, r0 = blockIdx.x * BM;
+  const int G = p.H / p.KV, R = G * p.Tq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key1 = BN / 2 * (warp & 1) + (lane & 7);  // phase 1: keys key1 + 8 i
+  const int r1 = RW * (warp >> 1) + (lane >> 3);  // phase 1: rows r1 + 4 j
+  const int half = threadIdx.x >> 7;              // phase 2: key groups 2 m + half
+  const int rg = (threadIdx.x & 127) >> 3, cg = threadIdx.x & 7;  // phase 2
+
+  stage_q_rows<float, D, BM, LD, THREADS>(p, b, kvh, r0, Qs, dOs, KVs + 2 * BN * LD);
+  repro::cp_async_commit();
+  const int t_min = r0 / G, t_max = (min(r0 + BM, R) - 1) / G;
+  int lo, hi;
+  key_range(p, t_min, t_max, lo, hi);
+  const int kt_lo = lo / BN, kt_hi = hi > lo ? (hi + BN - 1) / BN : kt_lo;
+  auto stage_kv = [&](int kt, int buf) {
+    float* K = KVs + buf * 2 * BN * LD;
+    stage_kv_tile<float, D, BN, LD, THREADS>(p, b, kvh, kt, K, K + BN * LD);
+  };
+  if (kt_lo < kt_hi) stage_kv(kt_lo, 0);
+  repro::cp_async_commit();
+
+  const int kv_end = min(p.Tk, p.kv_len);
+  int t1[RJ];  // positions of this lane's phase-1 rows, -1 past the end
+  float lse1[RJ], delta1[RJ];
+#pragma unroll
+  for (int j = 0; j < RJ; ++j) {
+    const int r = r0 + r1 + 4 * j;
+    t1[j] = r < R ? r / G : -1;
+    lse1[j] = r < R ? p.lse[stat_row(p, b, kvh, r)] : 0.f;
+  }
+
+  repro::cp_async_wait<1>();  // Q, dO and O landed (the first KV tile may not have)
+  __syncthreads();
+  row_deltas<float, D, BM, LD, THREADS>(p, b, kvh, r0, KVs + 2 * BN * LD, dOs, Ds);
+  __syncthreads();  // delta is in Ds; O's buffer is free for KV tile kt_lo + 1
+#pragma unroll
+  for (int j = 0; j < RJ; ++j) delta1[j] = Ds[r1 + 4 * j];
+
+  float acc[RI][CJ][4];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int buf = (kt - kt_lo) & 1;
+    repro::cp_async_wait_all();
+    __syncthreads();  // tile kt landed; tile kt - 1 and dSs are consumed
+    if (kt + 1 < kt_hi) stage_kv(kt + 1, buf ^ 1);
+    repro::cp_async_commit();
+    const int k0 = kt * BN;
+    const float* Kt = KVs + buf * 2 * BN * LD;
+    const float* Vt = Kt + BN * LD;
+    // every pair of the tile live (block-uniform): skip the per-pair masks
+    const bool full = r0 + BM <= R && k0 + BN <= kv_end
+                      && (!p.causal || k0 + BN - 1 <= t_min)
+                      && (p.window <= 0 || t_max - k0 < p.window);
+
+    float s[KI][RJ], dp[KI][RJ];
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[KI], vf[KI];
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        kf[i] = *reinterpret_cast<const float4*>(Kt + (key1 + 8 * i) * LD + d);
+        vf[i] = *reinterpret_cast<const float4*>(Vt + (key1 + 8 * i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const float4 qf = *reinterpret_cast<const float4*>(Qs + (r1 + 4 * j) * LD + d);
+        const float4 df = *reinterpret_cast<const float4*>(dOs + (r1 + 4 * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          s[i][j] = repro::dot4(qf, kf[i], s[i][j]);
+          dp[i][j] = repro::dot4(df, vf[i], dp[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RJ; ++j)
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        const int key = key1 + 8 * i;
+        const bool live = full || (t1[j] >= 0 && pair_live(t1[j], k0 + key, kv_end, p));
+        float pj, ds;
+        pair_grads(s[i][j], dp[i][j], lse1[j], delta1[j], live, p, pj, ds);
+        dSs[(r1 + 4 * j) * PLD + key] = ds;
+      }
+    __syncthreads();  // dS of the whole tile is in shared memory
+
+#pragma unroll 2
+    for (int k = 4 * half; k < BN; k += 8) {
+      float4 da[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        da[i] = *reinterpret_cast<const float4*>(dSs + (rg + 16 * i) * PLD + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) {
+          const float4 kv = *reinterpret_cast<const float4*>(Kt + (k + u) * LD + 4 * cg + 32 * c);
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            const float du = repro::lane4(da[i], u);
+            acc[i][c][0] = fmaf(du, kv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(du, kv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(du, kv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(du, kv.w, acc[i][c][3]);
           }
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[i][c] += part[c] * p.scale;
         }
       }
     }
   }
 
-  T* dqb = static_cast<T*>(p.dq) + b * p.sgqb + h * p.sgqh;
+  // the second half hands its sums to the first through the q tile's memory
+  repro::cp_async_wait_all();
+  __syncthreads();
+  float* part = Qs;  // [BM][D]
+  if (half) {
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int qpos = q0 + warp * kRowsPerWarp + i;
-    if (qpos < p.Tq) {
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        dqb[qpos * p.sgqt + lane + 32 * c] = repro::from_float<T>(acc[i][c]);
+      for (int c = 0; c < CJ; ++c)
+        *reinterpret_cast<float4*>(part + (rg + 16 * i) * D + 4 * cg + 32 * c) =
+            make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
+  }
+  __syncthreads();
+  if (half) return;
+  float* dqb = static_cast<float*>(p.dq) + b * p.sgqb + kvh * G * p.sgqh;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = r0 + rg + 16 * i;
+    if (r >= R) continue;
+    float* qrow = dqb + (r % G) * p.sgqh + (r / G) * p.sgqt;
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      const int col = 4 * cg + 32 * c;
+      const float4 h = *reinterpret_cast<const float4*>(part + (rg + 16 * i) * D + col);
+      *reinterpret_cast<float4*>(qrow + col) =
+          make_float4((acc[i][c][0] + h.x) * p.scale, (acc[i][c][1] + h.y) * p.scale,
+                      (acc[i][c][2] + h.z) * p.scale, (acc[i][c][3] + h.w) * p.scale);
     }
   }
 }
@@ -322,18 +635,7 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
   const int G = p.H / p.KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, cq = lane & 3;
-  const T* kb = static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh;
-  {
-    const int Tk = p.Tk;
-    const long long skt = p.skt, svt = p.svt;
-    repro::stage_rows<T, D, BN, LD, THREADS>(Ks, [=](int i) -> const T* {
-      return k0 + i < Tk ? kb + (k0 + i) * skt : nullptr;
-    });
-    repro::stage_rows<T, D, BN, LD, THREADS>(Vs, [=](int i) -> const T* {
-      return k0 + i < Tk ? vb + (k0 + i) * svt : nullptr;
-    });
-  }
+  stage_kv_tile<T, D, BN, LD, THREADS>(p, b, kvh, blockIdx.x, Ks, Vs);
 
   int q_lo, q_hi, wq_lo, wq_hi;
   query_range(p, k0, BN, q_lo, q_hi);
@@ -519,18 +821,7 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
   const int q1 = QW * (warp >> 1) + (lane >> 3);   // phase 1: queries q1 + 4 j
   const int half = threadIdx.x >> 7;               // phase 2: query groups 2 m + half
   const int kr = (threadIdx.x & 127) >> 3, cc = threadIdx.x & 7;  // phase 2
-  const float* kb = static_cast<const float*>(p.k) + b * p.skb + kvh * p.skh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.svb + kvh * p.svh;
-  {
-    const int Tk = p.Tk;
-    const long long skt = p.skt, svt = p.svt;
-    repro::stage_rows<float, D, BN, LD, THREADS>(Ks, [=](int i) -> const float* {
-      return k0 + i < Tk ? kb + (k0 + i) * skt : nullptr;
-    });
-    repro::stage_rows<float, D, BN, LD, THREADS>(Vs, [=](int i) -> const float* {
-      return k0 + i < Tk ? vb + (k0 + i) * svt : nullptr;
-    });
-  }
+  stage_kv_tile<float, D, BN, LD, THREADS>(p, b, kvh, blockIdx.x, Ks, Vs);
 
   int q_lo, q_hi;
   query_range(p, k0, BN, q_lo, q_hi);
@@ -675,44 +966,36 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
 // -- launch -----------------------------------------------------------------
 
 template <typename F>
-cudaError_t allow_smem(F* kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<D>();
-  const cudaError_t e = allow_smem(bwd_dq_kernel<T, D>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.H, p.B);
-  bwd_dq_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const BwdParams& p, cudaStream_t stream) {
-  constexpr bool bf16 = sizeof(T) == 2;
-  constexpr int smem = bf16 ? DkvBf16<D>::smem : DkvF32<D>::smem;
-  constexpr int BN = bf16 ? DkvBf16<D>::BN : DkvF32<D>::BN;
-  constexpr int threads = bf16 ? kDkvBf16Warps * 32 : kDkvF32Threads;
-  auto* kernel = bf16 ? bwd_dkv_bf16<D> : bwd_dkv_f32<D>;
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.Tk + BN - 1) / BN, p.KV, p.B);
+cudaError_t launch(F* kernel, dim3 grid, int threads, int smem, const BwdParams& p,
+                   cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(bool dkv, int D, const BwdParams& p, cudaStream_t s) {
-  switch (D) {
-    case 32: return dkv ? launch_dkv<T, 32>(p, s) : launch_dq<T, 32>(p, s);
-    case 64: return dkv ? launch_dkv<T, 64>(p, s) : launch_dq<T, 64>(p, s);
-    case 128: return dkv ? launch_dkv<T, 128>(p, s) : launch_dq<T, 128>(p, s);
-    case 256: return dkv ? launch_dkv<T, 256>(p, s) : launch_dq<T, 256>(p, s);
-    default: return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_dq(bool bf16, const BwdParams& p, cudaStream_t s) {
+  const int rows = p.H / p.KV * p.Tq;
+  if (bf16) {
+    const dim3 grid((rows + DqBf16<D>::BM - 1) / DqBf16<D>::BM, p.KV, p.B);
+    return launch(bwd_dq_bf16<D>, grid, kDqBf16Threads, DqBf16<D>::smem, p, s);
   }
+  const dim3 grid((rows + DqF32<D>::BM - 1) / DqF32<D>::BM, p.KV, p.B);
+  return launch(bwd_dq_f32<D>, grid, kDqF32Threads, DqF32<D>::smem, p, s);
+}
+
+template <int D>
+cudaError_t launch_dkv(bool bf16, const BwdParams& p, cudaStream_t s) {
+  if (bf16) {
+    const dim3 grid((p.Tk + DkvBf16<D>::BN - 1) / DkvBf16<D>::BN, p.KV, p.B);
+    return launch(bwd_dkv_bf16<D>, grid, kDkvBf16Warps * 32, DkvBf16<D>::smem, p, s);
+  }
+  const dim3 grid((p.Tk + DkvF32<D>::BN - 1) / DkvF32<D>::BN, p.KV, p.B);
+  return launch(bwd_dkv_f32<D>, grid, kDkvF32Threads, DkvF32<D>::smem, p, s);
 }
 
 int run(bool dkv, int D, int is_bf16, const BwdParams& p, void* stream) {
@@ -720,58 +1003,45 @@ int run(bool dkv, int D, int is_bf16, const BwdParams& p, void* stream) {
     return static_cast<int>(cudaGetLastError());
   }
   auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = is_bf16 ? dispatch_d<__nv_bfloat16>(dkv, D, p, s)
-                                : dispatch_d<float>(dkv, D, p, s);
+  const bool bf16 = is_bf16 != 0;
+  cudaError_t e;
+  switch (D) {
+    case 32: e = dkv ? launch_dkv<32>(bf16, p, s) : launch_dq<32>(bf16, p, s); break;
+    case 64: e = dkv ? launch_dkv<64>(bf16, p, s) : launch_dq<64>(bf16, p, s); break;
+    case 128: e = dkv ? launch_dkv<128>(bf16, p, s) : launch_dq<128>(bf16, p, s); break;
+    case 256: e = dkv ? launch_dkv<256>(bf16, p, s) : launch_dq<256>(bf16, p, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }
 
 }  // namespace
 
-// o, dO: (B, H, Tq, D) in q's dtype, addressed through (batch, head, time)
-// strides in elements, last dim contiguous; delta: (B, H, Tq) fp32,
-// contiguous.
-extern "C" int flash_bwd_preprocess(const void* o, const void* dout, void* delta,
-                                    int B, int H, int Tq, int D,
-                                    int sob, int soh, int sot, int sdb, int sdh, int sdt,
-                                    int is_bf16, void* stream) {
-  const int rows = B * H * Tq;
-  if (rows == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (rows + kPreWarps - 1) / kPreWarps;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* out = static_cast<float*>(delta);
-  if (is_bf16) {
-    bwd_preprocess_kernel<__nv_bfloat16><<<blocks, kPreWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), out,
-        H, Tq, D, rows, sob, soh, sot, sdb, sdh, sdt);
-  } else {
-    bwd_preprocess_kernel<float><<<blocks, kPreWarps * 32, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), out,
-        H, Tq, D, rows, sob, soh, sot, sdb, sdh, sdt);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// q, dO, dq: (B, H, Tq, D); k, v: (B, KV, Tk, D); lse, delta: (B, H, Tq)
-// fp32, contiguous. Strided as flash_fwd; D in {32, 64, 128, 256}.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq,
+// q, o, dO, dq: (B, H, Tq, D); k, v: (B, KV, Tk, D); lse, delta: (B, H, Tq)
+// fp32, contiguous. Addressed through (batch, head, time) strides in
+// elements as flash_fwd, every row 16-byte aligned; D in {32, 64, 128, 256}.
+// Writes dq (in q's dtype) and delta = rowsum(dO * O) for every row.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* lse, void* delta, void* dq,
                             int B, int H, int KV, int Tq, int Tk, int D,
                             int sqb, int sqh, int sqt, int skb, int skh, int skt,
-                            int svb, int svh, int svt, int sdob, int sdoh, int sdot,
-                            int sgqb, int sgqh, int sgqt,
+                            int svb, int svh, int svt, int sob, int soh, int sot,
+                            int sdob, int sdoh, int sdot, int sgqb, int sgqh, int sgqt,
                             float scale, int causal, int window, float cap, int kv_len,
                             int is_bf16, void* stream) {
-  const BwdParams p{q, k, v, dout, static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), dq, nullptr, nullptr,
+  const BwdParams p{q, k, v, o, dout, static_cast<const float*>(lse),
+                    static_cast<float*>(delta), dq, nullptr, nullptr,
                     B, H, KV, Tq, Tk,
-                    sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sdob, sdoh, sdot,
+                    sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot,
+                    sdob, sdoh, sdot,
                     sgqb, sgqh, sgqt, 0, 0, 0, 0, 0, 0,
-                    scale, causal, window, cap, kv_len};
+                    scale, causal, window, cap, kv_len, cap > 0.f ? 1.f / cap : 0.f};
   return run(false, D, is_bf16, p, stream);
 }
 
 // dk, dv: (B, KV, Tk, D) in k's dtype, one gradient per KV head (the sum
-// over its G query heads); other arguments as flash_bwd_dq.
+// over its G query heads); delta as flash_bwd_dq wrote it; other arguments
+// as flash_bwd_dq.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
                              int B, int H, int KV, int Tq, int Tk, int D,
@@ -780,11 +1050,12 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int sgkb, int sgkh, int sgkt, int sgvb, int sgvh, int sgvt,
                              float scale, int causal, int window, float cap, int kv_len,
                              int is_bf16, void* stream) {
-  const BwdParams p{q, k, v, dout, static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), nullptr, dk, dv,
+  const BwdParams p{q, k, v, nullptr, dout, static_cast<const float*>(lse),
+                    static_cast<float*>(const_cast<void*>(delta)), nullptr, dk, dv,
                     B, H, KV, Tq, Tk,
-                    sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sdob, sdoh, sdot,
+                    sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, 0, 0, 0,
+                    sdob, sdoh, sdot,
                     0, 0, 0, sgkb, sgkh, sgkt, sgvb, sgvh, sgvt,
-                    scale, causal, window, cap, kv_len};
+                    scale, causal, window, cap, kv_len, cap > 0.f ? 1.f / cap : 0.f};
   return run(true, D, is_bf16, p, stream);
 }

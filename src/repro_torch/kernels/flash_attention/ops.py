@@ -4,7 +4,9 @@ versions for CPU tensors, and `flash_attention`, differentiable.
 Replaces `repro.kernels.flash_attention.kernel`'s four kernels:
 `flash_attention_fwd` (`_flash_kernel`, here `csrc/flash_fwd.cu`) and
 the FlashAttention-2 backward `flash_attention_bwd_preprocess`,
-`flash_attention_bwd_dq` and `flash_attention_bwd_dkv` (`csrc/flash_bwd.cu`).
+`flash_attention_bwd_dq` and `flash_attention_bwd_dkv` (`csrc/flash_bwd.cu`),
+where the preprocess (delta = rowsum(dO * O)) runs in the dq kernel's
+prologue: `flash_attention_bwd_dq` returns (dq, delta).
 The kernels' headers say what bounds them and how they are laid out.
 Unlike `repro`'s `ops.py`, nothing is padded to a block multiple: the
 kernels mask their own ragged edge. q, k, v, o and dO may be strided views
@@ -12,9 +14,9 @@ kernels mask their own ragged edge. q, k, v, o and dO may be strided views
 long as the head dim is contiguous; o and dq come back in q's memory
 layout, dk and dv in k's and v's. The dk/dv kernel writes one gradient per
 KV head, so `repro`'s per-query-head buffers and group sum (`ops.py:96-100`)
-have no counterpart. The forward and dk/dv kernels stage their tiles with
-16-byte `cp.async`, so their tensors' base addresses and (batch, head,
-time) strides must be multiples of 16 bytes (`check_aligned`); the model's
+have no counterpart. The kernels stage their tiles with 16-byte
+`cp.async`, so their tensors' base addresses and (batch, head, time)
+strides must be multiples of 16 bytes (`check_aligned`); the model's
 activations and every fresh allocation are. Each wrapper's `.launches`
 counts its kernel's launches and nothing else.
 """
@@ -59,8 +61,8 @@ def check_head_dim(d: int) -> None:
 
 
 def aligned(t) -> bool:
-    """Whether the 16-byte copies of the forward and dk/dv kernels can read
-    or write `t` (B, H, T, d) as it lies: contiguous head dim, base address
+    """Whether the attention kernels' 16-byte copies can read or write
+    `t` (B, H, T, d) as it lies: contiguous head dim, base address
     and every (batch, head, time) stride a multiple of 16 bytes (a stride of
     a size-1 dim is never used)."""
     esz = t.element_size()
@@ -135,69 +137,60 @@ flash_attention_fwd.launches = 0
 
 # -- backward ---------------------------------------------------------------------
 
-def flash_attention_bwd_preprocess(o, do):
-    """delta = rowsum(dO * O): (B, H, Tq) fp32. o and dO: (B, H, Tq, d) in
-    q's dtype, o as the forward stored it."""
-    if o.shape != do.shape or o.dtype != do.dtype or o.device != do.device:
-        raise ValueError(f"flash preprocess: o {tuple(o.shape)} {o.dtype} and dO "
-                         f"{tuple(do.shape)} {do.dtype} differ")
-    if o.device.type == "cpu":
-        return attention_bwd_preprocess_ref(o, do)
-    _check_kernel(o)
-    B, H, Tq, d = o.shape
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=o.device)
-    lib = _build.library()
-    err = lib.flash_bwd_preprocess(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                   B, H, Tq, d, *_strides(o, do),
-                                   int(o.dtype == torch.bfloat16),
-                                   torch.cuda.current_stream(o.device).cuda_stream)
-    _build.check(err, "flash_bwd_preprocess")
-    flash_attention_bwd_preprocess.launches += 1
-    return delta
-
-
-def _bwd_args(q, k, v, do, lse, delta):
+def _bwd_args(q, k, v, do, **stats):
+    """Check the backward's inputs; return the (B, H, Tq) fp32 `stats` (lse,
+    delta) contiguous."""
     _check(q, k, v, False)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"flash backward: dO {tuple(do.shape)} {do.dtype} does not "
                          f"match q {tuple(q.shape)} {q.dtype}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in stats.items():
         if t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device:
             raise ValueError(f"flash backward: {name} must be (B, H, Tq) fp32 on q's device")
     if q.device.type != "cpu":
         _check_kernel(q)
-    return lse.contiguous(), delta.contiguous()
+    return [t.contiguous() for t in stats.values()]
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale, causal=True,
+def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
                            window=0, cap=0.0, kv_len=None):
-    """dq (B, H, Tq, d) in q's dtype and layout, accumulated in fp32 over the
-    live KV tiles."""
-    lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    """(dq, delta): dq (B, H, Tq, d) in q's dtype and layout, accumulated in
+    fp32 over the live KV tiles, and delta = rowsum(dO * O) (B, H, Tq) fp32
+    for every row, which `flash_attention_bwd_dkv` takes. o is the forward's
+    output as it stored it (q's dtype); the kernel computes delta in its
+    prologue, so there is no separate preprocess launch."""
+    if o.shape != do.shape or o.dtype != do.dtype or o.device != do.device:
+        raise ValueError(f"flash backward: o {tuple(o.shape)} {o.dtype} and dO "
+                         f"{tuple(do.shape)} {do.dtype} differ")
+    (lse,) = _bwd_args(q, k, v, do, lse=lse)
     kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
     if q.device.type == "cpu":
-        return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[0]
+        delta = attention_bwd_preprocess_ref(o, do)
+        return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[0], delta
     B, H, Tq, d = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, o, do, dq)
+    check_aligned(q, k, v, o, do, dq)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
-    err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                           B, H, KV, Tq, Tk, d, *_strides(q, k, v, do, dq),
+    err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                           B, H, KV, Tq, Tk, d, *strides,
                            float(scale), int(causal), int(window), float(cap or 0.0),
                            kv_len, int(q.dtype == torch.bfloat16),
                            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
                             window=0, cap=0.0, kv_len=None):
     """(dk, dv), each (B, KV, Tk, d) in k's dtype and layout: the sum over
     each KV head's G query heads, accumulated in fp32 in one block."""
-    lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    lse, delta = _bwd_args(q, k, v, do, lse=lse, delta=delta)
     kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
     if q.device.type == "cpu":
         return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[1:]
@@ -219,25 +212,25 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
     return dk, dv
 
 
-for _fn in (flash_attention_bwd_preprocess, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+for _fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
     _fn.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale, causal=True, window=0,
                         cap=0.0, kv_len=None):
-    """(dq, dk, dv) of attention from the forward's o and lse: the three
-    kernels on CUDA, `attention_bwd_ref` on the CPU."""
+    """(dq, dk, dv) of attention from the forward's o and lse: on CUDA the dq
+    kernel (which also writes delta) and then the dk/dv kernel, on one
+    stream; `attention_bwd_ref` on the CPU."""
     kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, **kw)[1:]
-    delta = flash_attention_bwd_preprocess(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
     return (dq,) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the forward kernel, saving (q, k, v, o, lse). Backward: the
-    three backward kernels, recomputing in fp32 (also after a `mixed`
+    two backward kernels, recomputing in fp32 (also after a `mixed`
     forward, as `repro`'s backward does)."""
 
     @staticmethod

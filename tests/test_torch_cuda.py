@@ -25,7 +25,6 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
-    flash_attention_bwd_preprocess,
     flash_attention_fwd,
 )
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
@@ -198,13 +197,22 @@ FLASH_BWD = [
     (2, 4, 2, 48, 48, 32, torch.float32, True, 8, 30.0, 40),         # rows with no live key
     (2, 4, 2, 5, 40, 32, torch.float32, False, 0, 0.0, None),        # Tq != Tk
     (512, 4, 2, 26, 26, 32, torch.bfloat16, True, 0, 0.0, None),    # env step
-    # the tensor-core regime beyond d = 32; T off multiples of 16; G in {1, 2, 4}
-    (2, 4, 4, 37, 37, 64, torch.bfloat16, True, 0, 0.0, None),
-    (2, 4, 2, 50, 50, 128, torch.bfloat16, True, 16, 20.0, None),
-    (2, 8, 2, 65, 65, 256, torch.bfloat16, True, 0, 0.0, 60),
-    (2, 4, 1, 37, 65, 64, torch.bfloat16, False, 0, 0.0, None),     # Tq != Tk
     (2, 4, 2, 65, 65, 32, torch.float32, True, 8, 30.0, 50),
     (1, 8, 2, 50, 37, 32, torch.float32, False, 0, 0.0, None),
+    # positions 47.. have no live key; rows 128..191 are a dq tile with no KV tile
+    (1, 4, 2, 100, 100, 32, torch.float32, True, 8, 30.0, 40),
+    (1, 4, 2, 100, 100, 32, torch.bfloat16, True, 8, 30.0, 40),
+] + [
+    # the tensor-core regime beyond d = 32, each case at every head dim: T off
+    # multiples of 16, G in {1, 2, 4}, a window with softcap, a kv_len tail,
+    # Tq != Tk
+    (B, H, KV, Tq, Tk, d, torch.bfloat16, causal, window, cap, kv_len)
+    for d in (64, 128, 256)
+    for (B, H, KV, Tq, Tk, causal, window, cap, kv_len) in (
+        (2, 4, 4, 37, 37, True, 0, 0.0, None),
+        (2, 4, 2, 50, 50, True, 16, 20.0, None),
+        (2, 8, 2, 65, 65, True, 0, 0.0, 60),
+        (2, 4, 1, 37, 65, False, 0, 0.0, None))
 ]
 
 
@@ -220,10 +228,9 @@ def test_flash_bwd_kernels_match_plain(gen, B, H, KV, Tq, Tk, d, dtype, causal, 
     q, k, v, do = make(H, Tq), make(KV, Tk), make(KV, Tk), make(H, Tq)
     kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len)
     o, lse = flash_attention_fwd(q, k, v, **kw)
-    counters = (flash_attention_bwd_preprocess, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
     before = [c.launches for c in counters]
-    delta = flash_attention_bwd_preprocess(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     assert [c.launches for c in counters] == [n + 1 for n in before]
     assert dq.stride() == q.stride() and dk.stride() == k.stride() and dv.stride() == v.stride()
@@ -236,6 +243,17 @@ def test_flash_bwd_kernels_match_plain(gen, B, H, KV, Tq, Tk, d, dtype, causal, 
         assert err <= t, (name, err)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)      # no atomics: deterministic
+    dq2, delta2 = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+
+
+def test_flash_bwd_dq_rejects_a_misaligned_o(gen):
+    q = torch.randn(1, 4, 8, 32, generator=gen, device="cuda")
+    k = torch.randn(1, 2, 8, 32, generator=gen, device="cuda")
+    lse = torch.zeros(1, 4, 8, device="cuda")
+    o = torch.randn(4 * 8 * 32 + 1, generator=gen, device="cuda")[1:].view(1, 4, 8, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_dq(q, k, k, o, q, lse, scale=0.2)
 
 
 def test_flash_attention_autograd_runs_the_kernels(gen):

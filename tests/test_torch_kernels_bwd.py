@@ -32,9 +32,11 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
-    flash_attention_bwd_preprocess,
 )
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_preprocess_ref,
+    attention_bwd_ref,
+)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.vtrace_scan.ops import (
     reverse_discounted_scan,
@@ -81,7 +83,9 @@ def test_attention_bwd_ref_matches_pallas_bwd_kernels(B, H, KV, T, Tp, d, blk, c
     `flash_attention_bwd_dq` and dk/dv against `flash_attention_bwd_dkv`
     summed over each KV head's query heads, from the same o, lse and dO.
     Inputs are zero-padded to the Pallas block as `repro`'s ops.py pads;
-    rows past the true T are compared for dk/dv only (dO is zero there)."""
+    rows past the true T are compared for dk/dv only (dO is zero there).
+    The port's dq wrapper returns delta too (its kernel computes it in the
+    prologue): on the CPU it is the plain preprocess, equal to the JAX one."""
     rng = np.random.default_rng(10)
     arrs = [rng.standard_normal(s).astype(np.float32)
             for s in ((B, H, Tp, d), (B, KV, Tp, d), (B, KV, Tp, d), (B, H, Tp, d))]
@@ -106,9 +110,11 @@ def test_attention_bwd_ref_matches_pallas_bwd_kernels(B, H, KV, T, Tp, d, blk, c
     _close(dq[:, :, :T], dq_j[:, :, :T], GRAD_TOL)
     _close(dk, dk_j, GRAD_TOL)
     _close(dv, dv_j, GRAD_TOL)
-    # the three wrappers' CPU paths are the same plain version
-    assert torch.equal(flash_attention_bwd_preprocess(ot, gt), delta)
-    assert torch.equal(flash_attention_bwd_dq(qt, kt, vt, gt, lt, delta, **kw, kv_len=T), dq)
+    # the two wrappers' CPU paths are the same plain version
+    dq2, delta2 = flash_attention_bwd_dq(qt, kt, vt, ot, gt, lt, **kw, kv_len=T)
+    assert torch.equal(delta2, attention_bwd_preprocess_ref(ot, gt))
+    assert torch.equal(delta2, delta) and torch.equal(dq2, dq)
+    _close(delta2, delta_j, TOL["float32"])
     dk2, dv2 = flash_attention_bwd_dkv(qt, kt, vt, gt, lt, delta, **kw, kv_len=T)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
@@ -183,15 +189,41 @@ def test_flash_bwd_wrappers_reject_bad_inputs():
     q, k = torch.zeros(1, 4, 8, 32), torch.zeros(1, 2, 8, 32)
     lse, delta = torch.zeros(1, 4, 8), torch.zeros(1, 4, 8)
     with pytest.raises(ValueError):                     # dO does not match q
-        flash_attention_bwd_dq(q, k, k, q[:, :, :4], lse, delta, scale=1.0)
+        flash_attention_bwd_dq(q, k, k, q[:, :, :4], q[:, :, :4], lse, scale=1.0)
     with pytest.raises(ValueError):                     # lse in the wrong dtype
         flash_attention_bwd_dkv(q, k, k, q, lse.double(), delta, scale=1.0)
     with pytest.raises(ValueError):                     # o and dO differ
-        flash_attention_bwd_preprocess(q, q.to(torch.bfloat16))
+        flash_attention_bwd_dq(q, k, k, q, q.to(torch.bfloat16), lse, scale=1.0)
+
+
+def test_flash_bwd_delta_for_keyless_rows_and_an_empty_q_tile():
+    """With kv_len 40 and window 8, positions from 47 on have no live key,
+    and positions 64..95 of G = 2 heads fill a whole 64-row tile of the dq
+    kernel that sweeps no KV tile. `flash_attention_bwd` is
+    `attention_bwd_ref` on the CPU, and the dq wrapper's delta, which dk/dv
+    read, is rowsum(dO * O) on every row, keyless ones included."""
+    rng = np.random.default_rng(18)
+    B, H, KV, T, d = 1, 4, 2, 100, 32
+    q, o, g = (torch.from_numpy(rng.standard_normal((B, H, T, d)).astype(np.float32))
+               for _ in range(3))
+    k, v = (torch.from_numpy(rng.standard_normal((B, KV, T, d)).astype(np.float32))
+            for _ in range(2))
+    lse = torch.from_numpy(rng.standard_normal((B, H, T)).astype(np.float32))
+    kw = dict(scale=d ** -0.5, causal=True, window=8, cap=30.0, kv_len=40)
+    want = attention_bwd_ref(q, k, v, o, lse, g, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want[1:]))
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, g, lse, **kw)
+    assert delta.shape == (B, H, T) and delta.dtype == torch.float32
+    assert torch.equal(delta, want[0]) and torch.equal(delta, (o * g).sum(-1))
+    assert (delta[:, :, 47:] != 0).all()                 # keyless rows get their delta too
+    assert (dq[:, :, 47:] == 0).all() and torch.isfinite(dq).all()
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    assert torch.equal(dk, want[2]) and torch.equal(dv, want[3])
 
 
 def test_flash_bwd_cpu_calls_launch_nothing():
-    counters = (flash_attention_bwd_preprocess, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
     before = [c.launches for c in counters]
     q = torch.ones(1, 2, 4, 32)
     flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 4), q, scale=1.0)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash-attention forward and dk/dv kernels at the main path's shapes.
+"""Time the flash-attention kernels at the main path's shapes.
 
     python3 tools/time_flash.py [ROOT ...]
 
@@ -12,9 +12,14 @@ one card in turns:
 
 Shapes, all head_dim 32 on the model's (B, T, H, d) activations viewed as
 (B, H, T, d): the policy-s and policy-m serving flushes ((256, 4/2, 26)
-and (256, 8/4, 26), bf16), the env step ((512, 4/2, 26), bf16; forward and
-dk/dv) and the seq step ((1, 4/2, 4096), fp32, window 512, softcap 30;
-forward and dk/dv). Each time is the median of 30 CUDA-event-timed calls
+and (256, 8/4, 26), bf16), the env step ((512, 4/2, 26), bf16; forward,
+dq and dk/dv) and the seq step ((1, 4/2, 4096), fp32, window 512, softcap 30;
+forward, dq and dk/dv). At the two learner shapes `dq_ms` times what gives dq
+and delta: one `flash_attention_bwd_dq` call where the dq kernel computes
+delta in its prologue, and a tree whose API still has
+`flash_attention_bwd_preprocess` gets the preprocess and then dq, timed
+together and alone (`preprocess_ms`, `dq_alone_ms`), so `dq_ms` compares
+like with like. Each time is the median of 30 CUDA-event-timed calls
 after a warm-up, with the L2 cache warm; `sdpa` is
 F.scaled_dot_product_attention at the shapes it computes (no window, no
 softcap), a yardstick the port never calls. Prints one JSON line per root
@@ -40,11 +45,7 @@ def time_one(root: Path) -> dict:
     sys.path.insert(0, str(root / "src"))
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd_dkv,
-        flash_attention_bwd_preprocess,
-        flash_attention_fwd,
-    )
+    from repro_torch.kernels.flash_attention import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -71,15 +72,23 @@ def time_one(root: Path) -> dict:
 
         q, k, v, do = make(H), make(KV), make(KV), make(H)
         kw = dict(scale=d ** -0.5, causal=True, window=window, cap=cap)
-        r = {"fwd_ms": device_ms(lambda: flash_attention_fwd(q, k, v, **kw))}
+        r = {"fwd_ms": device_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw))}
         if not window and not cap:
             r["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True))
         if bwd:
-            o, lse = flash_attention_fwd(q, k, v, **kw)
-            delta = flash_attention_bwd_preprocess(o, do)
+            o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+            if hasattr(ops, "flash_attention_bwd_preprocess"):   # delta in a kernel of its own
+                pre, dq_of = ops.flash_attention_bwd_preprocess, ops.flash_attention_bwd_dq
+                delta = pre(o, do)
+                r["dq_ms"] = device_ms(lambda: dq_of(q, k, v, do, lse, pre(o, do), **kw))
+                r["preprocess_ms"] = device_ms(lambda: pre(o, do))
+                r["dq_alone_ms"] = device_ms(lambda: dq_of(q, k, v, do, lse, delta, **kw))
+            else:
+                delta = ops.flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)[1]
+                r["dq_ms"] = device_ms(lambda: ops.flash_attention_bwd_dq(q, k, v, o, do, lse, **kw))
             r["dkv_ms"] = device_ms(
-                lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+                lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
         out[name] = r
     return out
 
