@@ -21,8 +21,9 @@ drives the port's two paths on the card:
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
-run. Phases print one JSON line each; any failed check raises and the
-script exits non-zero. The line before the last lists every kernel with its
+run. Phases print one JSON line each (among them `launch_floor`: an empty
+kernel timed as the kernels are); any failed check raises and the script
+exits non-zero. The line before the last lists every kernel with its
 time, bound and launches; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -267,6 +268,9 @@ def main() -> int:
         except Exception as e:                # a yardstick only: record why it is missing
             return {"error": f"{type(e).__name__}: {e}"[:400]}
 
+    # the launch floor: an empty kernel timed as device_ms times the kernels,
+    # the least any kernel's time can be under this timer
+    emit("launch_floor", ms=device_ms(lambda: torch.cuda._sleep(0)))
     gen = torch.Generator(device=dev).manual_seed(0)
     dname = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     results = {"rmsnorm": [], "flash_attention_fwd": []}
@@ -394,16 +398,25 @@ def main() -> int:
         check(r["ms"] <= r["library_ms"],
               f"flash {lbl}: {r['ms']} ms, slower than SDPA's {r['library_ms']} ms")
 
-    # edge cases the serving shapes do not reach: the RMSNorm scalar path
-    # (odd d, misaligned x), and flash attention on strided (B, T, H, d)
-    # views with a tail (kv_len), a window that leaves rows with no live key
-    # (o = 0, lse = 0), and bidirectional attention with Tq != Tk
+    # edge cases the serving shapes do not reach: the RMSNorm two-pass
+    # kernel's scalar path (odd d, misaligned x), odd rows (the last
+    # half-warp has no row), a warp whose rows straddle two models, two
+    # vectors per lane (d = 256 fp32), the q/k-norm width (d = 32); and
+    # flash attention on strided (B, T, H, d) views with a tail (kv_len), a
+    # window that leaves rows with no live key (o = 0, lse = 0), and
+    # bidirectional attention with Tq != Tk
     edge = {}
-    for d, off in ((33, 0), (64, 1)):
-        x = torch.randn(9 * d + off, generator=gen, device=dev)[off:].view(9, d)
-        w = torch.randn(d, generator=gen, device=dev)
-        edge[f"rmsnorm d={d} offset={off}"] = (
-            (rmsnorm(x, w) - rmsnorm_ref(x, w)).abs().max().item(), TOL["float32"]["rmsnorm"])
+    rms_edges = [  # x shape, weight rows, dtype, element offset of x
+        ((9, 33), 1, torch.float32, 0), ((9, 64), 1, torch.float32, 1),
+        ((37, 128), 1, torch.bfloat16, 0), ((2, 3, 5, 128), 2, torch.bfloat16, 0),
+        ((37, 256), 1, torch.float32, 0), ((5, OBS_LEN, 4, 32), 1, torch.bfloat16, 0)]
+    for shape, models, dtype, off in rms_edges:
+        n, d = int(np.prod(shape)), shape[-1]
+        x = torch.randn(n + off, generator=gen, device=dev).to(dtype)[off:].view(shape)
+        w = torch.randn(*((models, d) if models > 1 else (d,)), generator=gen, device=dev)
+        tol = TOL["bfloat16"] if dtype == torch.bfloat16 else TOL["float32"]["rmsnorm"]
+        edge[f"rmsnorm {shape} {dname[dtype]} weight rows={models} offset={off}"] = (
+            (rmsnorm(x, w).float() - rmsnorm_ref(x, w).float()).abs().max().item(), tol)
     for (Tq, Tk, causal, window, kv_len) in ((48, 48, True, 8, 40), (5, 40, False, 0, None)):
         q = torch.randn(2, Tq, 4, 32, generator=gen, device=dev).transpose(1, 2)
         k = torch.randn(2, Tk, 2, 32, generator=gen, device=dev).transpose(1, 2)
@@ -542,12 +555,22 @@ def main() -> int:
             results[name].append(r)
             emit("kernel", name=name, **r)
 
-    scan_cases = [(ENV_B, ENV_T, torch.float32, "GAE, env step"),
-                  (1, SEQ_T, torch.float32, "V-trace, seq step"),
-                  (13, 100, torch.float32, "odd"), (4, 40, torch.bfloat16, "bf16 inputs")]
-    for (B, T, dtype, label) in scan_cases:
-        deltas = torch.randn(B, T, generator=gen, device=dev).to(dtype)
-        decays = (0.99 * torch.rand(B, T, generator=gen, device=dev)).to(dtype)
+    scan_cases = [  # B, T, dtype, element offset of deltas and decays, label
+        (ENV_B, ENV_T, torch.float32, 0, "GAE, env step"),
+        (1, SEQ_T, torch.float32, 0, "V-trace, seq step"),
+        (13, 100, torch.float32, 0, "odd"), (4, 40, torch.bfloat16, 0, "bf16 inputs"),
+        (5, 1, torch.float32, 0, "T = 1"), (1, SEQ_T + 1, torch.float32, 0, "T = 4097"),
+        (3, SEQ_T, torch.bfloat16, 0, "bf16, three long rows"),
+        (ENV_B, ENV_T, torch.float32, 1, "misaligned views, env shape"),
+        (3, SEQ_T, torch.bfloat16, 1, "misaligned views, bf16 long rows")]
+
+    def at_offset(t, off):
+        """t as a contiguous view `off` elements into its storage."""
+        return torch.cat([t.new_zeros(off), t.flatten()])[off:].view(t.shape) if off else t
+
+    for (B, T, dtype, off, label) in scan_cases:
+        deltas = at_offset(torch.randn(B, T, generator=gen, device=dev).to(dtype), off)
+        decays = at_offset((0.99 * torch.rand(B, T, generator=gen, device=dev)).to(dtype), off)
         init = torch.randn(B, generator=gen, device=dev)
         y = reverse_discounted_scan_p(deltas, decays, init)
         ry = reverse_discounted_scan_ref(deltas, decays, init)
@@ -567,7 +590,7 @@ def main() -> int:
         check(bwd_err <= gtol, f"scan {label}: backward err {bwd_err} > {gtol}")
         nbytes = 2 * deltas.numel() * deltas.element_size() + init.numel() * 4 + y.numel() * 4
         b_ms, b_by = bound(nbytes, 2 * B * T, "float32")
-        r = dict(shape=[B, T], dtype=dname[dtype], label=label, max_abs_err=fwd_err,
+        r = dict(shape=[B, T], dtype=dname[dtype], offset=off, label=label, max_abs_err=fwd_err,
                  bwd_err=bwd_err, tol=SCAN_TOL,
                  ms=device_ms(lambda: reverse_discounted_scan_p(deltas, decays, init)),
                  plain_ms=device_ms(lambda: reverse_discounted_scan_ref(deltas, decays, init)),

@@ -32,6 +32,36 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(v);  // round to nearest even, as astype(bfloat16)
 }
 
+// -- 16-byte vectors of fp32 or bf16 held as uint4 ---------------------------
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// 32-bit word i of u (i a compile-time constant after unrolling).
+__device__ __forceinline__ unsigned word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+__device__ __forceinline__ void set_word(uint4& u, int i, unsigned v) {
+  if (i == 0) u.x = v;
+  else if (i == 1) u.y = v;
+  else if (i == 2) u.z = v;
+  else u.w = v;
+}
+
+// Element e of a 16-byte vector of T, as fp32 (bf16: its bits shifted up,
+// which is __bfloat162float).
+template <typename T>
+__device__ __forceinline__ float vec_elem(const uint4& u, int e) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word(u, e));
+  } else {
+    const unsigned w = word(u, e / 2);
+    return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+  }
+}
+
 // acc + a . b over four lanes, in order x, y, z, w.
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));

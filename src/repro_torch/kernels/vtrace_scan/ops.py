@@ -4,7 +4,8 @@ version for CPU tensors, and its closed-form gradient.
 Replaces `repro.kernels.vtrace_scan.kernel.reverse_discounted_scan_p`
 (`_scan_kernel`); the kernel is `csrc/reverse_scan.cu`, whose header says
 what bounds it and how it is laid out. Unlike `repro`'s `ops.py`, nothing
-is padded to a batch block: the kernel runs one block per row.
+is padded to a batch block: the kernel masks its own ragged edges and
+takes any alignment (16-byte loads where it can, scalar ones elsewhere).
 `reverse_discounted_scan_p.launches` counts kernel launches and nothing
 else.
 

@@ -59,6 +59,15 @@ def gen():
     ((2, 50, 96), torch.float32, 2, 0),     # one weight row per model
     ((2, 128, 26, 128), torch.bfloat16, 2, 0),  # grouped theta + phi flush, policy-s
     ((2, 128, 26, 256), torch.bfloat16, 2, 0),  # grouped theta + phi flush, policy-m
+    ((37, 128), torch.bfloat16, 1, 0),      # odd rows: the last half-warp has no row
+    ((2, 3, 5, 128), torch.bfloat16, 2, 0),  # 15 rows per model: a warp straddles two
+    ((37, 256), torch.float32, 1, 0),       # two vectors per lane
+    ((5, 26, 4, 32), torch.bfloat16, 1, 0),  # the q/k-norm width: 8 rows per warp
+    ((3, 7, 32), torch.float32, 1, 0),
+    ((9, 128), torch.bfloat16, 1, 1),       # misaligned bf16 x: scalar path
+    ((131072, 128), torch.bfloat16, 1, 0),  # more rows than the card holds: strided, prefetched
+    ((2, 40000, 128), torch.bfloat16, 2, 0),  # strided rows crossing the model boundary
+    ((50000, 96), torch.float32, 1, 0),     # the two-pass kernel, strided
 ])
 def test_rmsnorm_kernel_matches_plain(gen, shape, dtype, models, offset):
     n = int(np.prod(shape))
@@ -270,8 +279,18 @@ def test_flash_attention_autograd_runs_the_kernels(gen):
     torch.testing.assert_close(gk.cpu(), rk, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("B,T,dtype", [(32, 16, torch.float32), (1, 4096, torch.float32),
-                                       (13, 100, torch.float32), (4, 40, torch.bfloat16)])
+@pytest.mark.parametrize("B,T,dtype", [
+    (32, 16, torch.float32), (1, 4096, torch.float32), (13, 100, torch.float32),
+    (4, 40, torch.bfloat16),
+    (5, 1, torch.float32),              # one element per row: one lane per row
+    (1, 4097, torch.float32),           # two tiles, the right one of one element
+    (3, 4096, torch.bfloat16),
+    (300, 129, torch.float32),          # the shortest row of the block kernel: 2 warps
+    (4, 257, torch.bfloat16),           # two warps per row, rows 16-byte misaligned
+    (1000, 16, torch.float32),          # many packed blocks
+    (2, 20000, torch.float32),          # five tiles per row
+    (1, 30000, torch.bfloat16),         # four tiles
+])
 def test_reverse_scan_kernel_matches_plain(gen, B, T, dtype):
     deltas = torch.randn(B, T, generator=gen, device="cuda").to(dtype)
     decays = (0.99 * torch.rand(B, T, generator=gen, device="cuda")).to(dtype)
@@ -281,6 +300,7 @@ def test_reverse_scan_kernel_matches_plain(gen, B, T, dtype):
     assert reverse_discounted_scan_p.launches == before + 1 and y.dtype == torch.float32
     ry = reverse_discounted_scan_ref(deltas, decays, init)
     assert ((y - ry).abs().max() / ry.abs().max()).item() <= 1e-5
+    assert torch.equal(y, reverse_discounted_scan_p(deltas, decays, init))   # deterministic
     g = torch.randn(B, T, generator=gen, device="cuda")
     leaves = [t.detach().requires_grad_() for t in (deltas, decays, init)]
     gk = torch.autograd.grad((reverse_discounted_scan(*leaves) * g).sum(), leaves)
@@ -289,6 +309,24 @@ def test_reverse_scan_kernel_matches_plain(gen, B, T, dtype):
     for a, b in zip(gk, gr):
         assert a.dtype == b.dtype
         assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("B,T,dtype", [(32, 16, torch.float32), (1, 4096, torch.float32),
+                                       (3, 4096, torch.bfloat16), (2, 4097, torch.float32)])
+def test_reverse_scan_kernel_on_misaligned_views(gen, B, T, dtype):
+    """Contiguous views one element into their storage: no row is 16-byte
+    aligned, so every load and store takes the scalar path."""
+    def view(t):
+        return torch.cat([t.new_zeros(1), t.flatten()])[1:].view(B, T)
+
+    deltas = view(torch.randn(B, T, generator=gen, device="cuda").to(dtype))
+    decays = view((0.99 * torch.rand(B, T, generator=gen, device="cuda")).to(dtype))
+    init = torch.randn(B, generator=gen, device="cuda")
+    assert deltas.is_contiguous() and deltas.data_ptr() % 16 != 0
+    y = reverse_discounted_scan_p(deltas, decays, init)
+    ry = reverse_discounted_scan_ref(deltas, decays, init)
+    assert ((y - ry).abs().max() / ry.abs().max()).item() <= 1e-5
+    assert torch.equal(y, reverse_discounted_scan_p(deltas, decays, init))
 
 
 def test_env_train_step_on_cuda_matches_cpu(gen):

@@ -52,8 +52,13 @@ def _np(t) -> np.ndarray:
 
 # -- rmsnorm ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,dtype", [((8, 128), "float32"), ((37, 96), "float32"),
-                                         ((3, 5, 64), "bfloat16"), ((2, 7, 256), "bfloat16")])
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 128), "float32"), ((37, 96), "float32"), ((3, 5, 64), "bfloat16"),
+    ((2, 7, 256), "bfloat16"),
+    ((37, 128), "bfloat16"),          # odd rows: the kernel's last half-warp has no row
+    ((37, 256), "float32"),           # d = 256 fp32: two vectors per lane
+    ((5, 26, 4, 32), "bfloat16"),     # the q/k-norm width, head_dim 32
+])
 def test_rmsnorm_matches_pallas_interpret(shape, dtype):
     rng = np.random.default_rng(0)
     xj, xt = _pair(rng.standard_normal(shape).astype(np.float32), dtype)
@@ -74,6 +79,21 @@ def test_rmsnorm_per_model_weights_match_per_model_calls():
     for m in range(2):
         ref = jax_rmsnorm(jnp.asarray(x[m]), jnp.asarray(w[m]), interpret=True)
         np.testing.assert_allclose(out[m], np.asarray(ref), atol=TOL["float32"], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rmsnorm_grouped_weights_straddling_warps_match_per_model_calls(dtype):
+    """(2, 3, 5, 128): 15 rows per model, so on the card one warp's two
+    rows at d = 128 bf16 belong to two models; each model's rows still take
+    its own weight row."""
+    rng = np.random.default_rng(2)
+    xj, xt = _pair(rng.standard_normal((2, 3, 5, 128)).astype(np.float32), dtype)
+    w = (1.0 + 0.1 * rng.standard_normal((2, 128))).astype(np.float32)
+    out = rmsnorm(xt, torch.from_numpy(w))
+    assert out.dtype == xt.dtype
+    for m in range(2):
+        ref = jax_rmsnorm(xj[m], jnp.asarray(w[m]), interpret=True)
+        np.testing.assert_allclose(_np(out[m]), _np(ref), atol=TOL[dtype], rtol=0)
 
 
 def test_rmsnorm_wrapper_rejects_bad_weights():

@@ -233,7 +233,9 @@ def test_flash_bwd_cpu_calls_launch_nothing():
 # -- the reverse scan ---------------------------------------------------------------
 
 @pytest.mark.parametrize("B,T,dtype", [(32, 16, "float32"), (1, 300, "float32"),
-                                       (13, 100, "float32"), (4, 40, "bfloat16")])
+                                       (13, 100, "float32"), (4, 40, "bfloat16"),
+                                       (5, 1, "float32"), (2, 4097, "float32"),
+                                       (3, 4096, "bfloat16"), (7, 1, "bfloat16")])
 def test_reverse_scan_matches_pallas_interpret(B, T, dtype):
     rng = np.random.default_rng(14)
     dj, dt = _pair(rng.standard_normal((B, T)).astype(np.float32), dtype)
@@ -247,7 +249,8 @@ def test_reverse_scan_matches_pallas_interpret(B, T, dtype):
 
 
 @pytest.mark.parametrize("B,T,dtype", [(8, 64, "float32"), (5, 33, "float32"),
-                                       (4, 40, "bfloat16")])
+                                       (4, 40, "bfloat16"), (5, 1, "float32"),
+                                       (2, 4097, "float32"), (3, 4097, "bfloat16")])
 def test_reverse_scan_closed_form_grads_match_repro(B, T, dtype):
     """The cases of tests/test_kernels.py::test_reverse_scan_closed_form_grads:
     the port's closed-form backward against `repro`'s (interpret mode), with

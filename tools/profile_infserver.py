@@ -28,6 +28,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 ROWS, OBS_LEN, ACTORS = 256, 26, 8
 
 
+# the port's own kernels, by a part of their names
+PORT_KERNELS = ("rmsnorm", "scan", "flash_fwd", "bwd_dq", "bwd_dkv")
+
+
+def port_kernels(dev, n):
+    """[name, launches, device ms] per flush of each of the port's own
+    kernels among the profiler's device events `dev` over n flushes."""
+    return [[e.key[:80], e.count / n, e.self_device_time_total / 1e3 / n] for e in dev
+            if any(k in e.key for k in PORT_KERNELS)]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -86,6 +97,7 @@ def main() -> int:
                 "device_busy_ms_per_flush": busy_us / 1e3 / n if busy_us else None,
                 "device_ops_per_flush": launches / n,
                 "idle_share": (1 - busy_us / 1e6 / prof_s) if busy_us else None,
+                "port_kernels": port_kernels(dev, n),
                 "top_device_ops": [{"name": e.key[:80], "count_per_flush": e.count / n,
                                     "ms_per_flush": e.self_device_time_total / 1e3 / n}
                                    for e in top],

@@ -30,6 +30,17 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
+# the port's own kernels, by a part of their names
+PORT_KERNELS = ("rmsnorm", "scan", "flash_fwd", "bwd_dq", "bwd_dkv")
+
+
+def port_kernels(dev, n):
+    """[name, launches, device ms] per step of each of the port's own
+    kernels among the profiler's device events `dev` over n steps."""
+    return [[e.key[:80], e.count / n, e.self_device_time_total / 1e3 / n] for e in dev
+            if any(k in e.key for k in PORT_KERNELS)]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -97,6 +108,7 @@ def main() -> int:
             "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
             "device_ops_per_step": launches / n,
             "idle_share": (1 - busy_us / 1e6 / prof_s) if busy_us else None,
+            "port_kernels": port_kernels(dev, n),
             "top_device_ops": [{"name": e.key[:80], "count_per_step": e.count / n,
                                 "ms_per_step": e.self_device_time_total / 1e3 / n}
                                for e in top],
