@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` and
-drives the port's two paths on the card:
+drives the port's three paths on the card:
 
 - serving: holds the forward kernels (RMSNorm, flash-attention forward)
   against their plain PyTorch versions at the serving shapes, serves the
@@ -17,7 +17,21 @@ drives the port's two paths on the card:
   (tleague-policy-s, PPO + GAE, 32 x 16 rows of 26-token observations, bf16
   compute) and 3 sequence train steps (V-trace over 4096 tokens, window
   512, softcap 30, fp32, remat), and checks step 1 on the card against the
-  port's CPU step at fp32 compute.
+  port's CPU step at fp32 compute;
+- league: the learner's side of the league loop (paper §3.2). A Learner
+  trains tleague-policy-s (bf16 compute) for 10 iterations from a blocking
+  DataServer on the card, each on a 32 x 16 segment whose actions, logp and
+  values the InfServer served; each learn step pushes theta to the
+  ModelPool and the InfServer hot-swaps it in through a CachedPuller. Then
+  the learning period ends and one more iteration runs on the new key.
+  Checks: staged batches bitwise equal to the ring rows, a prefetch hit per
+  step, the hosted version and content hash, served logp and values against
+  the CPU's plain forward on the Learner's params, NotModified on an
+  unchanged pull, a zero-byte cross-key adopt of the new key, fresh
+  moments, and exactly an env step's launches per learn step and a
+  flush's per segment served; then the loop again with a producer thread
+  putting while the previous step runs (prefetch on and off), and two
+  fp32 iterations on the card against the same on the CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -150,6 +164,401 @@ def with_grads(opt):
         p, st, m = opt.update(grads, state, params)
         return p, st, {**m, "grads": grads}
     return Optimizer(opt.init, update)
+
+
+def league_loop(dev, cfg, theta0, iters, segments=None, freeze=False, on_iter=None,
+                producer=False, prefetch=True):
+    """The learner's side of the league loop (paper §3.2) on `dev`: a
+    ModelPool and a LeagueMgr with one self-play PFSP agent, a Learner over a
+    blocking DataServer, and an InfServer that hosts the current key through
+    a CachedPuller. Each iteration takes a segment (made here from the
+    InfServer's answers for seeded observations, as a served actor would,
+    unless `segments` gives it), puts it, learns one step, and pulls the new
+    theta into the InfServer. With `freeze`, the agent's learning period then
+    ends and one more iteration runs on the new key. With `producer`, a
+    thread of its own puts the given segments, each as soon as the Learner
+    has taken the previous one, so the put and its staging run while the
+    previous step does, as an actor thread's would; `prefetch` is the
+    DataServer's (without it a batch is staged when the Learner asks for
+    it). `on_iter(state, when)` runs after each iteration's learn and again
+    after its refresh. Returns the state (league, learner, server, puller,
+    metered pool, segments, metrics, and the InfServer flushes that served
+    segments)."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import LeagueMgr, SelfPlayPFSPGameMgr
+    from repro_torch.infserver import InfServer
+    from repro_torch.learners import DataServer, Learner, build_env_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.params import CachedPuller, NotModified
+    from repro_torch.utils import tree_flatten_with_path, tree_leaves
+
+    class Metered:
+        """The pool's pull surface, recording each answer and the param
+        bytes it ships (hash references and NotModified ship none)."""
+
+        def __init__(self, pool):
+            self.pool, self.last, self.bytes = pool, None, 0
+
+        def pull_if_changed(self, key, have_version=None, copy=None, have_hashes=None):
+            r = self.pool.pull_if_changed(key, have_version, copy=copy, have_hashes=have_hashes)
+            shipped = ([] if isinstance(r, NotModified) else
+                       [x for _, x in tree_flatten_with_path(r.params)[0]] if r.full
+                       else list((r.leaves or {}).values()))
+            self.last, self.bytes = r, sum(x.numel() * x.element_size() for x in shipped)
+            return r
+
+    class StagedDataServer(DataServer):
+        """Records each staged batch with the ring rows its slots select at
+        the time of the call, the call's wall time, and whether the staging
+        thread had already finished the batch when the call came."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.staged, self.stage_ms, self.ready_at_call = [], [], []
+            self.taken = threading.Event()
+
+        def sample_to_device(self, batch_rows=None):
+            self.ready_at_call.append(self._staged is not None and self._staged[3].done())
+            t0 = time.perf_counter()
+            batch = super().sample_to_device(batch_rows)
+            self.stage_ms.append(1e3 * (time.perf_counter() - t0))
+            slots = self.last_sample_info()["slots"]
+            self.staged.append((batch, [np.take(b, slots, axis=0) for b in self._buffers]))
+            self.taken.set()
+            return batch
+
+    league = LeagueMgr(seed=0)
+    league.add_learning_agent("main", theta0, game_mgr=SelfPlayPFSPGameMgr(payoff=None))
+    opt = adamw(3e-4, clip_norm=1.0)
+    learner = Learner(league, build_env_train_step(cfg, NUM_ACTIONS, opt), opt, theta0,
+                      data_server=StagedDataServer(device=dev, prefetch=prefetch), device=dev)
+    pool = Metered(league.model_pool)
+    puller = CachedPuller(pool)
+    server = InfServer(cfg, NUM_ACTIONS, device=dev, max_batch=ROWS)
+    st = {"league": league, "learner": learner, "server": server, "puller": puller,
+          "pool": pool, "segments": [], "metrics": [], "refresh_bytes": [], "seg_flushes": 0}
+
+    def refresh():
+        key = learner.current_key
+        params, man = puller.get_with_manifest(key)
+        server.update_params(params, key=key, content_hash=man.tree_hash, version=man.version)
+        st["refresh_bytes"].append(pool.bytes)
+        return man
+
+    def produce():
+        for i, seg in enumerate(segments[:iters]):
+            if i:
+                learner.data_server.taken.wait()
+                learner.data_server.taken.clear()
+            learner.data_server.put(seg)
+
+    refresh()
+    if producer:
+        thread = threading.Thread(target=produce, name="smoke-producer", daemon=True)
+        thread.start()
+    rng = np.random.default_rng(11)
+    for i in range(iters + (1 if freeze else 0)):
+        if freeze and i == iters:
+            st["old_key"] = learner.current_key
+            st["cross_key_before"] = league.model_pool.pull_stats["cross_key"]
+            st["new_key"] = learner.end_learning_period(reason="smoke")
+            moments = [t for k in ("mu", "nu") for t in tree_leaves(learner.opt_state[k])]
+            st["fresh_moments"] = (int(learner.opt_state["step"]) == 0
+                                   and not any(bool(t.any()) for t in moments))
+            st["adopt"] = refresh()
+            st["adopt_answer"], st["adopt_bytes"] = pool.last, pool.bytes
+        if segments is None:
+            obs = rng.integers(0, 16, (ENV_B, ENV_T, OBS_LEN)).astype(np.int32)
+            flushes = server.batches_run
+            a, logp, v = server.get(server.submit(obs.reshape(-1, OBS_LEN),
+                                                  model=learner.current_key))
+            st["seg_flushes"] += server.batches_run - flushes
+            shape = (ENV_B, ENV_T)
+            seg = {"obs": obs, "actions": a.reshape(shape), "behavior_logp": logp.reshape(shape),
+                   "behavior_values": v.reshape(shape),
+                   "rewards": rng.normal(size=shape).astype(np.float32),
+                   "done": rng.random(shape) < 0.05,
+                   "bootstrap_value": rng.normal(size=(ENV_B,)).astype(np.float32)}
+        else:
+            seg = segments[i]
+        st["segments"].append(seg)
+        if producer:
+            check(learner.data_server.wait_ready(timeout=60), "league: the producer put nothing")
+        else:
+            learner.data_server.put(seg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = learner.learn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        st["learn_ms"] = 1e3 * (time.perf_counter() - t0)
+        st["metrics"].append({k: v.item() for k, v in metrics.items()})
+        if on_iter:
+            on_iter(st, "learned")
+        st["man"] = refresh()
+        if on_iter:
+            on_iter(st, "refreshed")
+    if producer:
+        thread.join()
+    return st
+
+
+def league_phase(dev, cfg_env, counters, smi, per_step):
+    """The league path on the card: the Learner trains policy-s (bf16
+    compute) from a blocking DataServer on segments whose actions, logp and
+    values the InfServer served; every learn step pushes theta to the
+    ModelPool, and the InfServer hot-swaps it in through a CachedPuller.
+    Then the learning period ends (theta frozen into the opponent pool) and
+    one more iteration runs on the new key. The kernels' launch counts are
+    set to 0 before the path and read after it; the launches of what only
+    measures or checks the path (the bare step timed beside each learn, the
+    probe's flush and its direct forward) are taken out, and the rest must
+    equal the path's own: an env step's per learn step and a policy-s
+    flush's per segment served.
+
+    The probe served after each refresh is held twice: against
+    `make_obs_policy` on the Learner's params on the card, which runs the
+    same code and kernels as the InfServer and so shows only that the swap
+    delivered the Learner's params; and against the same forward on the
+    CPU's plain versions (bf16 compute), which checks the served numbers.
+
+    Then the same loop runs again with a producer thread that puts each
+    segment while the previous step runs (as the league runtime's actor
+    threads would), with the DataServer's prefetch and without, to measure
+    whether the staging is hidden; and two fp32 iterations on the card are
+    held against the same on the CPU. Returns (launches, numbers)."""
+    import torch
+
+    from repro_torch.actors.policy import make_obs_policy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import init_params
+    from repro_torch.params import NotModified, build_manifest
+    from repro_torch.rl import categorical_logp
+    from repro_torch.utils import tree_flatten_with_path, tree_leaves, tree_map
+
+    for c in counters:
+        c.launches = 0
+    dispatch.stats(reset=True)
+    excluded = {c.__name__: 0 for c in counters}
+
+    def uncounted(fn):
+        """Run `fn`, adding the launches it makes to `excluded`."""
+        before = {c.__name__: c.launches for c in counters}
+        out = fn()
+        for c in counters:
+            excluded[c.__name__] += c.launches - before[c.__name__]
+        return out
+
+    pol_env = make_obs_policy(cfg_env, NUM_ACTIONS)
+    probe = np.random.default_rng(12).integers(0, 16, (64, OBS_LEN)).astype(np.int32)
+    lg = {"learn_ms": [], "step_ms": [], "stage_ms": [], "h2d_bytes": [], "mint_ms": [],
+          "hash_ms": [], "refresh_bytes": [], "served_err": [], "served": []}
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def check_staged(learner, lg):
+        """The newest staged batch against the ring rows its slots select;
+        records its H2D bytes and its `sample_to_device` and `learn` ms.
+        Returns the batch."""
+        batch, rows = learner.data_server.staged[-1]
+        leaves = [x for _, x in tree_flatten_with_path(batch)[0]]
+        check(all(x.is_cuda for x in leaves), "league: a staged leaf is not on the card")
+        check(all(np.array_equal(x.cpu().numpy(), r) for x, r in zip(leaves, rows)),
+              "league: a staged batch differs from the ring rows its slots select")
+        lg["h2d_bytes"].append(sum(x.numel() * x.element_size() for x in leaves))
+        lg["stage_ms"].append(learner.data_server.stage_ms[-1])
+        return batch
+
+    def bare_step_ms(learner, batch):
+        """The bare train step on the same batch (functional: nothing kept)."""
+        return uncounted(lambda: sync_ms(lambda: learner.train_step(
+            learner.params, learner.opt_state, batch))[0])
+
+    def on_iter(st, when):
+        learner, server, league = st["learner"], st["server"], st["league"]
+        key = learner.current_key
+        if when == "learned":
+            batch = check_staged(learner, lg)
+            lg["learn_ms"].append(st["learn_ms"])
+            lg["step_ms"].append(bare_step_ms(learner, batch))
+            # the push's manifest, minted on its own with the card idle, and
+            # the same content's manifest from host copies (the hashing alone)
+            lg["mint_ms"].append(sync_ms(lambda: league.model_pool.manifest(key))[0])
+            host = tree_map(lambda t: t.cpu(), learner.params)
+            lg["hash_ms"].append(sync_ms(lambda: build_manifest(host, 0))[0])
+            st["host_params"] = host
+            return
+        lg["refresh_bytes"].append(st["refresh_bytes"][-1])
+        check(server._pool_versions[key] == league.model_pool.version(key),
+              f"league: hosted version {server._pool_versions[key]} != pool's")
+        check(server.has_model(key, build_manifest(learner.params, 0).tree_hash),
+              "league: the hosted content hash is not the Learner's params'")
+
+        def probe_forward():
+            a, logp, v = server.get(server.submit(probe, model=key))
+            with torch.no_grad():
+                lgts, vd = pol_env.logits_values(learner.params,
+                                                 torch.from_numpy(probe).to(dev).long())
+                ld = categorical_logp(lgts, torch.from_numpy(a).to(dev))
+            return a, logp, v, ld.cpu().numpy(), vd.float().cpu().numpy()
+        a, logp, v, ld, vd = uncounted(probe_forward)
+        err = max(np.abs(logp - ld).max(), np.abs(v - vd).max())
+        lg["served_err"].append(float(err))
+        check(err <= TOL["bfloat16"], f"league: served logp/value off by {err}")
+        # held against the CPU's plain forward once the path's routing is read
+        lg["served"].append((a, logp, v, st["host_params"]))
+        noops = server.swap_noops
+        params, man = st["puller"].get_with_manifest(key)
+        check(isinstance(st["pool"].last, NotModified), "league: an unchanged pull was not NotModified")
+        server.update_params(params, key=key, content_hash=man.tree_hash, version=man.version)
+        check(server.swap_noops == noops + 1, "league: an unchanged refresh swapped")
+
+    theta0 = init_params(torch.Generator(device=dev).manual_seed(7), cfg_env)
+    t_league = time.perf_counter()
+    st = league_loop(dev, cfg_env, theta0, ENV_STEPS, freeze=True, on_iter=on_iter)
+    league_s = time.perf_counter() - t_league
+    launches = {c.__name__: c.launches - excluded[c.__name__] for c in counters}
+    excluded = dict(excluded)
+    learner, league = st["learner"], st["league"]
+    ans = st["adopt_answer"]
+    check(not isinstance(ans, NotModified) and not ans.full and not ans.leaves
+          and set(ans.by_hash) == set(st["adopt"].leaf_hashes),
+          "league: the adopted key did not arrive wholly by hash")
+    check(st["adopt_bytes"] == 0, f"league: adopting the new key shipped {st['adopt_bytes']} bytes")
+    check(league.model_pool.pull_stats["cross_key"] > st["cross_key_before"],
+          "league: the adopt was not a cross-key answer")
+    check(str(st["old_key"]) in league.league_state()["frozen_pool"],
+          "league: the old key is not in the frozen pool")
+    check(st["fresh_moments"], "league: the optimizer moments were not fresh after the freeze")
+    check(learner.data_server.prefetch_hits == learner.step_count == ENV_STEPS + 1,
+          f"league: prefetch hits {learner.data_server.prefetch_hits}, "
+          f"steps {learner.step_count}")
+    check(all(np.isfinite(list(m.values())).all() for m in st["metrics"]),
+          "league: non-finite metrics")
+    # the path's own launches: an env step's per learn step, and a policy-s
+    # flush's (2L + 1 RMSNorms, L forwards) per segment the InfServer served
+    L = cfg_env.num_layers
+    per_flush = {"rmsnorm": 2 * L + 1, "flash_attention_fwd": L}
+    check(st["seg_flushes"] == ENV_STEPS + 1,
+          f"league: {st['seg_flushes']} flushes served {ENV_STEPS + 1} segments")
+    for name in launches:
+        want = (learner.step_count * per_step["env"][name]
+                + st["seg_flushes"] * per_flush.get(name, 0))
+        check(launches[name] == want,
+              f"league path: {name} launched {launches[name]} times, want {want}")
+    st_disp = dispatch.stats()
+    check(not any("|reference" in key for key in st_disp),
+          f"league path: plain versions ran on the card: {st_disp}")
+
+    # the served probes against the CPU's plain forward on the same params,
+    # each of logp and value relative to max(1, max |plain|) as BWD_TOL holds
+    # bf16 outputs: the logits are rounded to bf16 once, so an error of an
+    # ulp grows with their size (one ulp at 2 to 4 is 0.0156)
+    cpu_err, cpu_abs = 0.0, 0.0
+    with torch.no_grad():
+        for a, logp, v, host in lg["served"]:
+            lgts, vc = pol_env.logits_values(host, torch.from_numpy(probe).long())
+            lc = categorical_logp(lgts, torch.from_numpy(a).long())
+            for got, want in ((logp, lc.float().numpy()), (v, vc.float().numpy())):
+                e = float(np.abs(got - want).max())
+                cpu_abs = max(cpu_abs, e)
+                cpu_err = max(cpu_err, e / max(1.0, float(np.abs(want).max())))
+    check(cpu_err <= BWD_TOL["bfloat16"],
+          f"league: served logp/value off the CPU's plain forward by {cpu_err} of its size")
+
+    # the same loop with a producer thread (the path's counts are read): each
+    # put lands while the previous step runs, so with prefetch its staging
+    # can finish before the Learner asks for it; without, the batch is
+    # staged when asked. Two rounds of each, alternated.
+    ov = {mode: {"learn_ms": [], "step_ms": [], "stage_ms": [], "h2d_bytes": [],
+                 "ready": [], "seconds": 0.0} for mode in ("prefetch", "on_demand")}
+    for _ in range(2):
+        for mode, d in ov.items():
+            def on_iter_overlap(st, when, d=d):
+                if when == "learned":
+                    batch = check_staged(st["learner"], d)
+                    d["learn_ms"].append(st["learn_ms"])
+                    d["step_ms"].append(bare_step_ms(st["learner"], batch))
+            t_ov = time.perf_counter()
+            st_ov = league_loop(dev, cfg_env, theta0, ENV_STEPS, segments=st["segments"],
+                                on_iter=on_iter_overlap, producer=True,
+                                prefetch=mode == "prefetch")
+            d["seconds"] += time.perf_counter() - t_ov
+            ds_ov = st_ov["learner"].data_server
+            d["ready"] += [bool(x) for x in ds_ov.ready_at_call]
+            hits = ENV_STEPS if mode == "prefetch" else 0
+            check(ds_ov.prefetch_hits == hits and st_ov["learner"].step_count == ENV_STEPS,
+                  f"league producer ({mode}): prefetch hits {ds_ov.prefetch_hits}, "
+                  f"steps {st_ov['learner'].step_count}")
+
+    # card against CPU: two iterations at fp32 compute from the same theta0
+    # and the same segments (the card's served ones)
+    cfg32 = dataclasses.replace(cfg_env, compute_dtype="float32")
+    theta_cpu = init_params(torch.Generator().manual_seed(8), cfg32)
+    runs = {"card": league_loop(dev, cfg32, tree_map(lambda t: t.to(dev), theta_cpu), 2)}
+    runs["cpu"] = league_loop(torch.device("cpu"), cfg32, theta_cpu, 2,
+                              segments=runs["card"]["segments"])
+    card, cpu = runs["card"], runs["cpu"]
+    p_err = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(tree_leaves(card["learner"].params), tree_leaves(cpu["learner"].params)))
+    m_err = max(abs(a[k] - b[k]) for a, b in zip(card["metrics"], cpu["metrics"]) for k in a)
+    check(p_err <= CARD_VS_CPU_TOL and m_err <= CARD_VS_CPU_TOL,
+          f"league card vs CPU: params {p_err}, metrics {m_err} > {CARD_VS_CPU_TOL}")
+    key = card["learner"].current_key
+    check(card["league"].model_pool.version(key) == cpu["league"].model_pool.version(key),
+          "league card vs CPU: pool versions differ")
+    counters_of = lambda r: {k: r["learner"].data_server.throughput()[k]
+                             for k in ("prefetch_hits", "prefetch_misses", "repeat_ratio")}
+    check(counters_of(card) == counters_of(cpu), "league card vs CPU: feed counters differ")
+
+    med = statistics.median
+    paired = lambda d: med(a - b for a, b in zip(d["learn_ms"], d["step_ms"]))
+    league_out = {"learn_ms": med(lg["learn_ms"]), "bare_step_ms": med(lg["step_ms"]),
+                  "learn_minus_bare_ms": paired(lg),
+                  "sample_to_device_ms": med(lg["stage_ms"]),
+                  "h2d_bytes_per_step": lg["h2d_bytes"][0], "mint_ms": med(lg["mint_ms"]),
+                  "host_hash_ms": med(lg["hash_ms"]),
+                  "pull_bytes_per_refresh": med(lg["refresh_bytes"]),
+                  "adopt_bytes": st["adopt_bytes"], "seconds": league_s,
+                  **{f"producer_{mode}_{k}": f(d) for mode, d in ov.items() for k, f in (
+                      ("learn_ms", lambda d: med(d["learn_ms"])),
+                      ("bare_step_ms", lambda d: med(d["step_ms"])),
+                      ("learn_minus_bare_ms", paired),
+                      ("sample_to_device_ms", lambda d: med(d["stage_ms"])),
+                      ("staged_ready_at_call", lambda d: sum(d["ready"])))}}
+    emit("league", card=smi, arch=cfg_env.name, compute_dtype=cfg_env.compute_dtype,
+         iterations=ENV_STEPS + 1, segment=[ENV_B, ENV_T, OBS_LEN],
+         param_bytes=st["adopt"].nbytes, **league_out,
+         learn_ms_each=[round(x, 3) for x in lg["learn_ms"]],
+         bare_step_ms_each=[round(x, 3) for x in lg["step_ms"]],
+         mint_ms_each=[round(x, 3) for x in lg["mint_ms"]],
+         staged_ready_at_call=sum(learner.data_server.ready_at_call),
+         sample_to_device_ms_each=[round(x, 3) for x in lg["stage_ms"]],
+         served_max_err=max(lg["served_err"]), served_vs_cpu_rel_err=cpu_err,
+         served_vs_cpu_abs_err=cpu_abs,
+         pull_stats=league.model_pool.pull_stats,
+         swaps=st["server"].swaps, swap_noops=st["server"].swap_noops,
+         frozen_pool=league.league_state()["frozen_pool"],
+         throughput=learner.data_server.throughput(), launches=launches,
+         launches_excluded=excluded, segment_flushes=st["seg_flushes"],
+         producer={mode: {"iterations": 2 * ENV_STEPS, "seconds": d["seconds"],
+                          "ready_at_call": d["ready"],
+                          "learn_ms_each": [round(x, 3) for x in d["learn_ms"]],
+                          "bare_step_ms_each": [round(x, 3) for x in d["step_ms"]],
+                          "sample_to_device_ms_each": [round(x, 3) for x in d["stage_ms"]]}
+                   for mode, d in ov.items()},
+         card_vs_cpu={"params": p_err, "metrics": m_err, "tol": CARD_VS_CPU_TOL})
+
+    return launches, league_out
 
 
 def main() -> int:
@@ -812,7 +1221,10 @@ def main() -> int:
         emit("train_card_vs_cpu", kind=which, compute_dtype="float32", max_abs_err=errs,
              tol=CARD_VS_CPU_TOL)
 
-    # -- 8. summary --------------------------------------------------------------
+    # -- 8. league: the learner's side of the loop on the card ------------------
+    launches["league"], league_out = league_phase(dev, cfg_env, counters, smi, per_step)
+
+    # -- 9. summary --------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
@@ -846,7 +1258,9 @@ def main() -> int:
     emit("summary", card=smi, build_s=round(build_s, 2), nvcc_s=_build.build_seconds,
          serve=serve, card_vs_cpu_max_err=card_vs_cpu,
          train={k: round(v["median_step_ms"], 3) for k, v in train.items()},
-         train_card_vs_cpu_max_err=learn_vs_cpu, seconds=time.perf_counter() - t_start)
+         train_card_vs_cpu_max_err=learn_vs_cpu,
+         league={k: round(v, 3) for k, v in league_out.items()},
+         seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the learner's league side (the DataServer's staging, manifests of card
+tensors, the Learner) against its CPU run.
 
 Marked `cuda`: every test skips where there is no CUDA device, since a CUDA
 kernel has no CPU mode. This file imports neither jax nor `repro`, so the
@@ -35,10 +37,12 @@ from repro_torch.kernels.vtrace_scan.ops import (
     reverse_discounted_scan_p,
 )
 from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
-from repro_torch.learners import build_env_train_step
+from repro_torch.core import LeagueMgr, SelfPlayPFSPGameMgr
+from repro_torch.learners import DataServer, Learner, build_env_train_step
 from repro_torch.models import init_params
 from repro_torch.optim import Optimizer, adamw
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.params import build_manifest, leaf_hash
+from repro_torch.utils import tree_flatten_with_path, tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -357,3 +361,79 @@ def test_env_train_step_on_cuda_matches_cpu(gen):
     assert abs(out["cuda"]["loss"].item() - out["cpu"]["loss"].item()) <= 1e-4
     for a, b in zip(tree_leaves(out["cuda"]["grads"]), tree_leaves(out["cpu"]["grads"])):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+def _segment(rng, B, T):
+    return {"obs": rng.integers(0, 16, (B, T, 26)).astype(np.int32),
+            "actions": rng.integers(0, 6, (B, T)).astype(np.int32),
+            "behavior_logp": (-np.abs(rng.normal(size=(B, T))) - 1.0).astype(np.float32),
+            "behavior_values": rng.normal(size=(B, T)).astype(np.float32),
+            "rewards": rng.normal(size=(B, T)).astype(np.float32),
+            "done": rng.random((B, T)) < 0.1,
+            "bootstrap_value": rng.normal(size=(B,)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("blocking", [False, True])
+def test_data_server_staging_is_bitwise_under_back_to_back_calls(gen, blocking):
+    """50 `sample_to_device` calls with no synchronisation between them and
+    puts in between (every other call off-policy, every call on-policy):
+    each staged batch must equal, bitwise, the ring rows its slots selected
+    at the time of the call. A pinned buffer rewritten while its copy is in
+    flight would give a batch the next gather's rows."""
+    rng = np.random.default_rng(0)
+    ds = DataServer(capacity_frames=8 * 64 * 16, seed=1, blocking=blocking)
+    ds.put(_segment(rng, 64, 16))
+    got, want = [], []
+    for i in range(50):
+        if blocking or i % 2:
+            ds.put(_segment(rng, 64, 16))
+        batch = ds.sample_to_device(None if blocking else 48)
+        slots = ds.last_sample_info()["slots"]
+        want.append([np.take(b, slots, axis=0) for b in ds._buffers])
+        got.append(batch)
+    torch.cuda.synchronize()
+    for batch, rows in zip(got, want):
+        leaves = [x for _, x in tree_flatten_with_path(batch)[0]]
+        assert all(x.is_cuda for x in leaves)
+        for x, r in zip(leaves, rows):
+            assert np.array_equal(x.cpu().numpy(), r)
+    assert ds.prefetch_hits >= (50 if blocking else 20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_leaf_hash_of_a_card_tensor_equals_the_cpu_one(gen, dtype):
+    x = torch.randn(64, 33, generator=gen, device="cuda").to(dtype)
+    assert leaf_hash(x) == leaf_hash(x.cpu())
+    tree = {"b": {"w": x, "s": x[0, 0].clone()}, "a": x.float()[:, :7].contiguous(),
+            "i": torch.arange(5, device="cuda", dtype=torch.int32)}
+    on_card, on_cpu = build_manifest(tree, 2), build_manifest(tree_map(torch.Tensor.cpu, tree), 2)
+    assert on_card.leaf_hashes == on_cpu.leaf_hashes and on_card.tree_hash == on_cpu.tree_hash
+
+
+def test_learner_on_cuda_matches_cpu(gen):
+    """Three (put, learn) rounds of policy-s at fp32 compute through the
+    league: the card's params and metrics within 1e-4 of the CPU run's,
+    the pool versions and the feed counters equal."""
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        league = LeagueMgr(seed=0)
+        league.add_learning_agent("main", params, game_mgr=SelfPlayPFSPGameMgr(payoff=None))
+        opt = adamw(3e-4, clip_norm=1.0)
+        learner = Learner(league, build_env_train_step(cfg, 6, opt), opt, params, device=dev)
+        rng = np.random.default_rng(1)
+        metrics = []
+        for _ in range(3):
+            learner.data_server.put(_segment(rng, 8, 8))
+            metrics.append({k: v.item() for k, v in learner.learn().items()})
+        out[dev] = (learner, metrics)
+    (cpu, m_cpu), (card, m_card) = out["cpu"], out["cuda"]
+    for a, b in zip(m_card, m_cpu):
+        assert a.keys() == b.keys() and all(abs(a[k] - b[k]) <= 1e-4 for k in a)
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+    key = card.current_key
+    assert card.league.model_pool.version(key) == cpu.league.model_pool.version(key) == 3
+    assert card.data_server.prefetch_hits == cpu.data_server.prefetch_hits == 3

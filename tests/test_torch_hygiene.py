@@ -2,7 +2,8 @@
 
 - No module of `repro_torch`, and none of `chip_smoke.py`,
   `tools/profile_infserver.py`, `tools/profile_learner.py`,
-  `tools/time_flash.py` and `tests/test_torch_cuda.py` (which runs
+  `tools/time_flash.py`, `tools/time_norm_scan.py` and
+  `tests/test_torch_cuda.py` (which runs
   on the card's machine, where there is no jax), imports jax or the JAX
   package `repro` (an AST walk, and a fresh interpreter that imports the
   whole port and finds no jax in `sys.modules`).
@@ -44,6 +45,7 @@ def test_port_and_chip_smoke_import_no_jax():
                                           ROOT / "tools" / "profile_infserver.py",
                                           ROOT / "tools" / "profile_learner.py",
                                           ROOT / "tools" / "time_flash.py",
+                                          ROOT / "tools" / "time_norm_scan.py",
                                           ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
