@@ -31,7 +31,22 @@ drives the port's three paths on the card:
   moments, and exactly an env step's launches per learn step and a
   flush's per segment served; then the loop again with a producer thread
   putting while the previous step runs (prefetch on and off), and two
-  fp32 iterations on the card against the same on the CPU.
+  fp32 iterations on the card against the same on the CPU;
+- envs: rps, duel and pommerman_lite at 256 slots, 64 steps on the card
+  and on the CPU from one state, bitwise; env-step ms at 16, 64, 256 slots;
+- actors: an Actor on pommerman_lite (16 envs x unroll 16, policy-s, bf16
+  compute), local (2T + 1 forwards per segment, one segment's T steps
+  under `set_sync_debug_mode("error")`, logp and values against the CPU's
+  plain forward) and served (T + 1 coalesced flushes per segment);
+- league_loop: `examples/quickstart.py`'s loop (Actor -> DataServer ->
+  Learner -> freeze -> payoff), 2 periods x 8 iterations;
+- runtime: `build_runtime` with `examples/league_specs/main_minimax.json`'s
+  two roles under a step gate of 8, to 2 freezes per role: local actors
+  with the DataServer's prefetch on and off, then served actors, each
+  launching exactly its learner steps' and its segments' or flushes'
+  kernels; `learn()` wall with prefetch on and off;
+- checkpoint: the Learner's θ on the card saved and loaded on the CPU,
+  bitwise.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -76,6 +91,17 @@ SCAN_TOL = 1e-5                    # of max |y|: the kernel reassociates the rec
 ENV_B, ENV_T = 32, 16              # 16 envs x team_size 2, unroll 16 (launch/train.py)
 SEQ_T = 4096                       # benchmarks/run.py's sequence-scale learner shape
 ENV_STEPS, SEQ_STEPS = 10, 3
+# the actors' and the league runtime's paths: pommerman_lite at
+# launch/train.py's defaults (16 envs, unroll 16), so a segment is the
+# learner's ENV_B x ENV_T batch
+ACT_E, ACT_T = ENV_B // 2, ENV_T
+ACT_SEGMENTS = 6
+ENV_SLOTS = (16, 64, 256)          # env-step timing; the card-vs-CPU check runs at 256
+ENV_CHECK_STEPS, ENV_TIMED_STEPS = 64, 20
+ENV_REWARD_TOL = 1e-6
+LOOP_PERIODS, LOOP_ITERS = 2, 8    # examples/quickstart.py's loop
+RUNTIME_STEP_GATE, RUNTIME_FREEZES = 8, 2
+RUNTIME_MAX_S = 300.0
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -561,6 +587,472 @@ def league_phase(dev, cfg_env, counters, smi, per_step):
     return launches, league_out
 
 
+def zero(counters):
+    """Set the kernels' launch counts, and the dispatch's per-tier counts
+    that `check_on_card` reads, to 0 just before a path runs."""
+    from repro_torch.kernels import dispatch
+    for c in counters:
+        c.launches = 0
+    dispatch.stats(reset=True)
+
+
+def read(counters):
+    return {c.__name__: c.launches for c in counters}
+
+
+def check_on_card(what):
+    """No op of the path run since the last call went to a plain version
+    (the dispatch counts are read and set to 0)."""
+    from repro_torch.kernels import dispatch
+    st = dispatch.stats(reset=True)
+    check(not any("|reference" in k for k in st), f"{what}: plain versions ran on the card: {st}")
+    return st
+
+
+def sync_wall(fn):
+    """(ms on the host clock, fn's result), the card idle before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def profiled(fn, n):
+    """Run fn n times under torch.profiler, each call between synchronises.
+    Returns the median call's wall ms, the device busy ms and device ops per
+    call (the profiler's CUDA events) and the device's idle share over the
+    profiled window: 1 - busy / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            walls.append(sync_wall(fn)[0])
+        window_s = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    return {"wall_ms_profiled": statistics.median(walls), "device_busy_ms": busy_ms / n,
+            "device_ops": sum(e.count for e in dev) / n,
+            "idle_share": 1 - busy_ms / 1e3 / window_s}
+
+
+def envs_phase(dev, smi):
+    """Each env at 256 slots, stepped 64 times on the card and on the CPU
+    from one initial state (reset on the card, copied to the CPU) with
+    actions from a numpy seed: states, obs, done and info bitwise equal,
+    rewards within ENV_REWARD_TOL. Then the median env-step ms on each
+    device at 16, 64 and 256 slots, and the card's device ops per step."""
+    import torch
+
+    from repro_torch.envs import make_env
+
+    cpu = torch.device("cpu")
+    out = {}
+    for name in ("rps", "duel", "pommerman_lite"):
+        envs = {"card": make_env(name, device=dev), "cpu": make_env(name, device=cpu)}
+        spec, S = envs["card"].spec, ENV_SLOTS[-1]
+        state, _ = envs["card"].reset(torch.Generator(device=dev).manual_seed(0), S)
+        states = {"card": state, "cpu": {k: v.cpu() for k, v in state.items()}}
+        acts = np.random.default_rng(1).integers(
+            0, spec.num_actions, (ENV_CHECK_STEPS, S, spec.num_agents)).astype(np.int32)
+        rew_err, dones = 0.0, 0
+        for t in range(ENV_CHECK_STEPS):
+            res = {}
+            for d, env in envs.items():
+                states[d], *res[d] = env.step(states[d], torch.from_numpy(acts[t]).to(env.device),
+                                              None)
+            (o_c, r_c, d_c, i_c), (o_h, r_h, d_h, i_h) = res["card"], res["cpu"]
+            same = lambda a, b: a.dtype == b.dtype and torch.equal(a.cpu(), b)
+            check(all(same(states["card"][k], v) for k, v in states["cpu"].items()),
+                  f"envs {name}: a state leaf differs between the card and the CPU at step {t}")
+            check(same(o_c, o_h) and same(d_c, d_h) and set(i_c) == set(i_h)
+                  and all(same(i_c[k], v) for k, v in i_h.items()),
+                  f"envs {name}: obs, done or info differ between the card and the CPU at step {t}")
+            rew_err = max(rew_err, (r_c.cpu() - r_h).abs().max().item())
+            dones += int(d_h.sum())
+        check(rew_err <= ENV_REWARD_TOL, f"envs {name}: rewards off by {rew_err}")
+        step_ms = {}
+        for d, env in envs.items():
+            for n in ENV_SLOTS:
+                gen = torch.Generator(device=env.device).manual_seed(2)
+                st = [env.reset(gen, n)[0]]
+                a = torch.from_numpy(acts[0, :n]).to(env.device)
+
+                def one(env=env, st=st, a=a, gen=gen):
+                    st[0] = env.step(st[0], a, gen)[0]
+                ms = [sync_wall(one)[0] for _ in range(ENV_TIMED_STEPS + 3)][3:]
+                step_ms[f"{d}_{n}"] = statistics.median(ms)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        st = [envs["card"].reset(gen, S)[0]]
+        a = torch.from_numpy(acts[0]).to(dev)
+        prof = profiled(lambda: st.__setitem__(0, envs["card"].step(st[0], a, gen)[0]), 10)
+        out[name] = {"step_ms": step_ms, "profiled": prof}
+        emit("envs", card=smi, env=name, slots=S, steps=ENV_CHECK_STEPS, bitwise=True,
+             reward_max_abs_err=rew_err, reward_tol=ENV_REWARD_TOL, episodes_ended=dones,
+             median_step_ms=step_ms, profiled=prof)
+    return out
+
+
+def check_traj(traj, what):
+    """`traj` against repro's segment contract: (rows, T, ...) leaves for the
+    2 * ACT_E learner rows of ACT_T steps, with repro's dtypes."""
+    rows, T = 2 * ACT_E, ACT_T
+    want = {"obs": ((rows, T, OBS_LEN), np.int32), "actions": ((rows, T), np.int32),
+            "behavior_logp": ((rows, T), np.float32), "behavior_values": ((rows, T), np.float32),
+            "rewards": ((rows, T), np.float32), "done": ((rows, T), np.bool_),
+            "bootstrap_value": ((rows,), np.float32)}
+    got = {k: (tuple(v.shape), np.dtype(v.dtype)) for k, v in traj.items()}
+    want = {k: (s, np.dtype(d)) for k, (s, d) in want.items()}
+    check(got == want, f"{what}: segment {got} is not repro's {want}")
+    check(all(np.isfinite(traj[k]).all() for k in ("behavior_logp", "behavior_values",
+                                                    "rewards", "bootstrap_value")),
+          f"{what}: non-finite segment values")
+
+
+def seed_league(theta0):
+    from repro_torch.core import LeagueMgr, SelfPlayPFSPGameMgr
+    league = LeagueMgr(seed=0)
+    league.add_learning_agent("main", theta0, game_mgr=SelfPlayPFSPGameMgr(payoff=None))
+    return league
+
+
+def actors_phase(dev, cfg, counters, smi, per_forward):
+    """An Actor on pommerman_lite, 16 envs x unroll 16, policy-s (bf16
+    compute), local then served. Local: ACT_SEGMENTS segments through
+    `run_segment`, then one more segment's T steps through the collector's
+    `collect_on_device` under `torch.cuda.set_sync_debug_mode("error")`
+    (any host sync raises); launches must equal 2T + 1 forwards' per
+    segment, and the recorded actions' logp and values must match the
+    CPU's plain forward on the same params. Served: the same Actor over an
+    InfServer on the card; T + 1 flushes per segment, each step's θ and φ
+    coalesced into one grouped forward, launches exactly the flushes'.
+    Returns (launches, numbers, theta0)."""
+    import threading
+
+    import torch
+
+    from repro_torch.actors import Actor
+    from repro_torch.actors.policy import make_obs_policy
+    from repro_torch.envs import make_env
+    from repro_torch.infserver import InfServer
+    from repro_torch.models import init_params
+    from repro_torch.rl import categorical_logp
+    from repro_torch.utils import tree_map
+    from repro_torch.utils.host import to_host
+
+    env = make_env("pommerman_lite", device=dev)
+    theta0 = init_params(torch.Generator(device=dev).manual_seed(21), cfg)
+    frames = ACT_E * ACT_T
+    out = {}
+
+    # -- local --------------------------------------------------------------
+    league = seed_league(theta0)
+    actor = local_actor = Actor(env, cfg, league, num_envs=ACT_E, unroll_len=ACT_T, seed=0,
+                                device=dev)
+    zero(counters)
+    walls = []
+    for _ in range(ACT_SEGMENTS):
+        ms, (traj, task) = sync_wall(actor.run_segment)
+        walls.append(ms)
+        check_traj(traj, "actors local")
+    theta = league.model_pool.pull(task.learner_key)
+    phi = league.model_pool.pull(task.opponent_keys[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        actor.carry, traj_dev, _ = actor.collector.collect_on_device(theta, phi, actor.carry,
+                                                                     actor.gen)
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_traj(to_host(traj_dev), "actors local, on device")
+    local = read(counters)
+    check_on_card("actors local")
+    segments = ACT_SEGMENTS + 1
+    want = {n: segments * (2 * ACT_T + 1) * per_forward.get(n, 0) for n in local}
+    check(local == want, f"actors local: launches {local}, want {want} ({segments} segments "
+                         f"of {2 * ACT_T + 1} forwards)")
+    # the last segment's logp and values against the CPU's plain forward
+    pol = make_obs_policy(cfg, env.spec.num_actions)
+    with torch.no_grad():
+        lg, v = pol.logits_values(tree_map(lambda t: t.cpu(), theta),
+                                  torch.from_numpy(traj["obs"].reshape(-1, OBS_LEN)).long())
+        logp = categorical_logp(lg, torch.from_numpy(traj["actions"].reshape(-1)).long())
+    errs = {}
+    for k, want_v in (("behavior_logp", logp), ("behavior_values", v)):
+        got = traj[k].reshape(-1)
+        want_v = want_v.float().numpy()
+        errs[k] = float(np.abs(got - want_v).max() / max(1.0, float(np.abs(want_v).max())))
+    check(max(errs.values()) <= BWD_TOL["bfloat16"],
+          f"actors local: logp/values off the CPU's plain forward by {errs}")
+    out["local"] = {"segment_ms": statistics.median(walls[1:]), "segment_ms_each": walls,
+                    "frames_per_s": frames / statistics.median(walls[1:]) * 1e3,
+                    "sync_checked_enqueue_ms": enqueue_ms, "vs_cpu_rel_err": errs}
+
+    # -- served -------------------------------------------------------------
+    # one learning period ended, so θ (main:0001) and the frozen φ
+    # (main:0000) are two routes whenever the matchmaker does not pick
+    # self-play
+    league = seed_league(theta0)
+    league.end_learning_period("main", theta0)
+    server = InfServer(cfg, env.spec.num_actions, device=dev, max_batch=ROWS)
+    models_per_flush = []
+    flush = server.flush
+
+    def counted_flush():
+        n = server.batches_run
+        flush()
+        if server.batches_run > n:
+            models_per_flush.append(server.last_batch_models)
+    server.flush = counted_flush
+    actor = Actor(env, cfg, league, num_envs=ACT_E, unroll_len=ACT_T, seed=1,
+                  inf_server=server, device=dev)
+    zero(counters)
+    walls, grouped = [], 0
+    for _ in range(ACT_SEGMENTS):
+        n = len(models_per_flush)
+        ms, (traj, task) = sync_wall(actor.run_segment)
+        walls.append(ms)
+        check_traj(traj, "actors served")
+        routes = len({task.learner_key, task.opponent_keys[0]})
+        check(models_per_flush[n:] == [routes] * ACT_T + [1],
+              f"actors served: flushes of a segment hosted {models_per_flush[n:]} models, "
+              f"want θ and φ ({routes} routes) in one flush per step and θ alone for "
+              f"the bootstrap")
+        grouped += routes == 2
+        man = league.model_pool.manifest(task.learner_key)
+        check(server.has_model(task.learner_key, man.tree_hash),
+              "actors served: the hosted content hash is not the pool's")
+    served = read(counters)
+    check_on_card("actors served")
+    check(grouped > 0, "actors served: no segment played θ against another route")
+    want = {n: len(models_per_flush) * per_forward.get(n, 0) for n in served}
+    check(served == want, f"actors served: launches {served}, want {want}")
+    out["served"] = {"segment_ms": statistics.median(walls[1:]), "segment_ms_each": walls,
+                     "frames_per_s": frames / statistics.median(walls[1:]) * 1e3,
+                     "flushes_per_segment": ACT_T + 1, "segments_grouped": grouped,
+                     "median_flush_ms": 1e3 * server._latency_sum / server.batches_run}
+    launches = {n: local[n] + served[n] for n in local}
+
+    # where a segment's time goes (after the counts were read)
+    out["local"]["profiled"] = profiled(local_actor.run_segment, 3)
+    out["served"]["profiled"] = profiled(actor.run_segment, 3)
+    # two local actors, each in a thread of its own, as the runtime runs
+    # them: the segment's wall against one actor alone
+    pair = [Actor(env, cfg, seed_league(theta0), num_envs=ACT_E, unroll_len=ACT_T, seed=3 + i,
+                  device=dev) for i in range(2)]
+    for a in pair:
+        a.run_segment()
+    pair_ms = [[], []]
+
+    def run_three(i):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pair[i].run_segment()
+            pair_ms[i].append(1e3 * (time.perf_counter() - t0))
+    threads = [threading.Thread(target=run_three, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    check(not any(t.is_alive() for t in threads) and all(len(m) == 3 for m in pair_ms),
+          "actors: the two actor threads did not finish their segments")
+    out["local"]["two_threads_segment_ms"] = statistics.median(pair_ms[0] + pair_ms[1])
+    emit("actors", card=smi, env="pommerman_lite", arch=cfg.name,
+         compute_dtype=cfg.compute_dtype, envs=ACT_E, unroll=ACT_T, rows=2 * ACT_E,
+         segments=ACT_SEGMENTS, launches_local=local, launches_served=served,
+         forwards_per_local_segment=2 * ACT_T + 1, **out)
+    return launches, out, theta0
+
+
+def league_loop_phase(dev, cfg, counters, smi, per_forward, per_step, theta0):
+    """`examples/quickstart.py`'s loop on the card: an Actor (local,
+    pommerman_lite, 16 envs x 16) -> `data_server.put` -> `learner.learn()`,
+    LOOP_ITERS iterations per learning period, then `end_learning_period`;
+    LOOP_PERIODS periods. The league state after it has `repro`'s structure:
+    the seed and the first period's key frozen, the lineage on the third
+    key, and a payoff entry for every reported match. Launches: exactly one
+    local segment's and one env step's per iteration. Returns (launches,
+    numbers, learner)."""
+    import torch
+
+    from repro_torch.actors import Actor
+    from repro_torch.envs import make_env
+    from repro_torch.learners import Learner, build_env_train_step
+    from repro_torch.optim import adamw
+
+    env = make_env("pommerman_lite", device=dev)
+    league = seed_league(theta0)
+    results = []
+    report = league.report_result
+    league.report_result = lambda r: (results.append(r), report(r))[1]
+    actor = Actor(env, cfg, league, num_envs=ACT_E, unroll_len=ACT_T, seed=2, device=dev)
+    opt = adamw(3e-4, clip_norm=1.0)
+    learner = Learner(league, build_env_train_step(cfg, env.spec.num_actions, opt), opt, theta0,
+                      device=dev)
+    zero(counters)
+    t0 = time.perf_counter()
+    iter_ms, learn_ms, losses = [], [], []
+    for _ in range(LOOP_PERIODS):
+        for _ in range(LOOP_ITERS):
+            t_it = time.perf_counter()
+            traj, task = actor.run_segment()
+            learner.data_server.put(traj)
+            t_l = time.perf_counter()
+            metrics = learner.learn()
+            losses.append(metrics["loss"].item())
+            learn_ms.append(1e3 * (time.perf_counter() - t_l))
+            iter_ms.append(1e3 * (time.perf_counter() - t_it))
+        learner.end_learning_period()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read(counters)
+    check_on_card("league_loop")
+    iters = LOOP_PERIODS * LOOP_ITERS
+    check(learner.step_count == iters, f"league_loop: {learner.step_count} learner steps")
+    want = {n: iters * ((2 * ACT_T + 1) * per_forward.get(n, 0) + per_step["env"][n])
+            for n in launches}
+    check(launches == want, f"league_loop: launches {launches}, want {want}")
+    check(all(np.isfinite(losses)), f"league_loop: non-finite losses {losses}")
+    state = league.league_state()
+    check(state["frozen_pool"] == ["main:0000", "main:0001"]
+          and state["agents"] == {"main": "main:0002"} and state["num_freezes"] == LOOP_PERIODS,
+          f"league_loop: league state {state}")
+    check(state["num_results"] == len(results) > 0,
+          f"league_loop: {state['num_results']} results recorded, {len(results)} reported")
+    pairs = {(r.learner_key, r.opponent_keys[0]) for r in results}
+    check(all(league.payoff.games(a, b) > 0 for a, b in pairs),
+          "league_loop: a reported match has no payoff entry")
+    out = {"iterations": iters, "seconds": seconds, "iteration_ms": statistics.median(iter_ms),
+           "learn_ms": statistics.median(learn_ms), "losses": [round(x, 4) for x in losses],
+           "results": len(results), "frozen_pool": state["frozen_pool"]}
+    emit("league_loop", card=smi, env="pommerman_lite", arch=cfg.name, periods=LOOP_PERIODS,
+         iters_per_period=LOOP_ITERS, launches=launches, league=state,
+         throughput=learner.data_server.throughput(), **out)
+    return launches, out, learner
+
+
+def runtime_phase(dev, cfg, counters, smi, per_forward, per_step):
+    """`build_runtime` on pommerman_lite, policy-s, 16 envs x 16, with the
+    two roles of `examples/league_specs/main_minimax.json` (main, and a
+    minimax exploiter that targets it; one actor each), each gated by
+    FreezeGate(step_gate=RUNTIME_STEP_GATE), stopped at RUNTIME_FREEZES
+    freezes per role. Three runs: local actors with the DataServer's
+    prefetch on, then off, then served actors. Each run shuts down
+    cleanly with exactly RUNTIME_FREEZES step-gate freezes per role; its
+    launches are exactly its learner steps' and its segments' (local) or
+    flushes' (served). Every `learn()` call of the learner threads is timed
+    on the host clock (the call ends with the push's manifest, which waits
+    for the step). A fourth, shorter run under the profiler gives the
+    device's busy and idle share. Returns (launches, numbers)."""
+    import dataclasses as dc
+
+    from repro_torch.league import FreezeGate, LeagueSpec, build_runtime
+
+    spec = LeagueSpec.from_json(str(ROOT / "examples" / "league_specs" / "main_minimax.json"))
+    spec = LeagueSpec(roles=tuple(dc.replace(r, gate=FreezeGate(step_gate=RUNTIME_STEP_GATE))
+                                  for r in spec))
+    L = cfg.num_layers
+
+    def build(**kw):
+        rt = build_runtime(spec, env_name="pommerman_lite", arch=cfg.name, num_envs=ACT_E,
+                           unroll_len=ACT_T, seed=0, device=dev, **kw)
+        timed = {}
+        for r in rt.roles:
+            lr, sink = r.learner.learner, timed.setdefault(r.spec.name, [])
+
+            def learn(num_steps=1, lr=lr, orig=lr.learn, sink=sink):
+                t0 = time.perf_counter()
+                m = orig(num_steps)
+                if m:
+                    sink.append(1e3 * (time.perf_counter() - t0))
+                return m
+            lr.learn = learn
+        return rt, timed
+
+    runs, launches = {}, {}
+    for mode, kw in (("prefetch", {"prefetch": True}), ("on_demand", {"prefetch": False}),
+                     ("served", {"served": True})):
+        rt, timed = build(**kw)
+        zero(counters)
+        report = rt.run(max_freezes_per_role=RUNTIME_FREEZES, max_seconds=RUNTIME_MAX_S)
+        got = read(counters)
+        check_on_card(f"runtime {mode}")
+        check(report["clean_shutdown"], f"runtime {mode}: unclean shutdown")
+        for name, role in report["roles"].items():
+            reasons = [f["reason"] for f in role["freezes"]]
+            check(len(reasons) == RUNTIME_FREEZES
+                  and all(x.startswith("step_gate@") for x in reasons),
+                  f"runtime {mode}: role {name} froze {reasons}")
+            check(all(role[k] > 0 for k in ("rfps", "cfps")), f"runtime {mode}: {name} rates")
+        check(report["frames_per_s"] > 0, f"runtime {mode}: frames_per_s")
+        steps = sum(r.learner.learner.step_count for r in rt.roles)
+        segments = sum(a.actor.frames_produced // (ACT_E * ACT_T) for r in rt.roles for a in r.actors)
+        forwards = rt.inf_server.batches_run if mode == "served" else segments * (2 * ACT_T + 1)
+        want = {n: steps * per_step["env"][n] + forwards * per_forward.get(n, 0) for n in got}
+        check(got == want, f"runtime {mode}: launches {got}, want {want} ({steps} learner "
+                           f"steps, {segments} segments, {forwards} forwards)")
+        check(got["reverse_discounted_scan_p"] == steps
+              and got["flash_attention_bwd_dkv"] == L * steps,
+              f"runtime {mode}: scan and dk/dv launches {got} for {steps} learner steps")
+        launches[mode] = got
+        learn_ms = [x for v in timed.values() for x in v]
+        runs[mode] = {
+            "wall_s": report["wall_s"], "frames_per_s": report["frames_per_s"],
+            "learner_steps": steps, "segments": segments, "forwards": forwards,
+            "learn_ms_median": statistics.median(learn_ms),
+            "learn_ms_each": {k: [round(x, 3) for x in v] for k, v in timed.items()},
+            # the learners' share of the run spent inside learn(): an
+            # actor-bound runtime leaves its learners waiting
+            "learner_busy_share": {k: sum(v) / 1e3 / report["wall_s"] for k, v in timed.items()},
+            "segment_ms": 1e3 * report["wall_s"] / max(1, segments / sum(
+                len(r.actors) for r in rt.roles)),
+            "prefetch": {r.spec.name: [r.data_server.prefetch_hits, r.data_server.prefetch_misses]
+                         for r in rt.roles},
+            "roles": {k: {x: v[x] for x in ("segments", "frames_produced", "learner_steps",
+                                            "rfps", "cfps")} for k, v in report["roles"].items()},
+            "freezes": {k: [f["reason"] for f in v["freezes"]] for k, v in report["roles"].items()},
+            "freeze_latency_s_max": report["freeze_latency_s_max"],
+            "launches_per_learner_step": {n: x / steps for n, x in got.items()}}
+        emit("runtime", card=smi, mode=mode, env="pommerman_lite", arch=cfg.name,
+             envs=ACT_E, unroll=ACT_T, step_gate=RUNTIME_STEP_GATE, launches=got,
+             league=report["league"], **runs[mode])
+    rt, _ = build(prefetch=True)
+    prof = profiled(lambda: rt.run(max_freezes_per_role=1, max_seconds=RUNTIME_MAX_S), 1)
+    emit("runtime_profiled", card=smi, mode="prefetch", freezes_per_role=1, **prof)
+    total = {n: sum(v[n] for v in launches.values()) for n in launches["prefetch"]}
+    return total, {"runs": runs, "profiled": prof}
+
+
+def checkpoint_phase(dev, learner, smi):
+    """The Learner's θ on the card saved with `save_pytree` and loaded onto
+    the CPU with `load_pytree`: every leaf bitwise equal, dtype and all."""
+    import torch
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.utils import tree_flatten_with_path, tree_map
+
+    path = ROOT / "build" / "chip_smoke" / "theta.npz"
+    theta = learner.params
+    check(all(x.is_cuda for _, x in tree_flatten_with_path(theta)[0]),
+          "checkpoint: θ is not on the card")
+    t0 = time.perf_counter()
+    save_pytree(str(path), theta)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    loaded = load_pytree(str(path), tree_map(lambda t: torch.empty_like(t, device="cpu"), theta))
+    pairs = list(zip(tree_flatten_with_path(theta)[0], tree_flatten_with_path(loaded)[0]))
+    check(all(pa == pb and a.dtype == b.dtype and b.device.type == "cpu"
+              and torch.equal(a.cpu(), b) for (pa, a), (pb, b) in pairs),
+          "checkpoint: a leaf loaded on the CPU differs from the card's")
+    emit("checkpoint", card=smi, leaves=len(pairs), bytes=path.stat().st_size,
+         save_ms=save_ms, bitwise=True)
+
+
 def main() -> int:
     import torch
 
@@ -692,6 +1184,8 @@ def main() -> int:
                  ((2, ROWS // 2, OBS_LEN, 128), 2, torch.bfloat16, "policy-s grouped"),
                  ((2, ROWS // 2, OBS_LEN, 256), 2, torch.bfloat16, "policy-m grouped"),
                  ((ENV_B * ENV_T * OBS_LEN, 128), 1, torch.bfloat16, "learner env shape"),
+                 ((ENV_B * OBS_LEN, 128), 1, torch.bfloat16, "actor forward"),
+                 ((2, ENV_B, OBS_LEN, 128), 2, torch.bfloat16, "served actor, grouped"),
                  ((SEQ_T, 128), 1, torch.float32, "learner seq shape"),
                  ((37, 96), 1, torch.float32, "odd")]
     for (shape, models, dtype, label) in rms_cases:
@@ -741,6 +1235,10 @@ def main() -> int:
          "policy-m serving, mixed"),
         (ENV_B * ENV_T, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
          "learner env shape"),
+        (ENV_B, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "actor forward"),
+        (2 * ENV_B, 4, 2, OBS_LEN, OBS_LEN, 32, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "served actor, grouped"),
         (1, 4, 2, SEQ_T, SEQ_T, 32, torch.float32, False, True, 512, 30.0, None, S,
          "learner seq shape"),
         (3, 4, 2, 37, 37, 64, torch.float32, False, True, 0, 0.0, None, M, "odd T, GQA"),
@@ -1224,14 +1722,41 @@ def main() -> int:
     # -- 8. league: the learner's side of the loop on the card ------------------
     launches["league"], league_out = league_phase(dev, cfg_env, counters, smi, per_step)
 
-    # -- 9. summary --------------------------------------------------------------
+    # -- 9. envs, actors, the quickstart loop, the runtime, a checkpoint -------
+    # a policy-s forward: 2 RMSNorms per layer and the final one, 1 attention
+    # per layer; a local segment runs 2T + 1 forwards, a served one T + 1
+    # flushes (each step's θ and φ in one grouped forward)
+    per_forward = {"rmsnorm": 2 * cfg_env.num_layers + 1,
+                   "flash_attention_fwd": cfg_env.num_layers}
+    envs_out = envs_phase(dev, smi)
+    launches["actors"], actors_out, theta0 = actors_phase(dev, cfg_env, counters, smi,
+                                                          per_forward)
+    launches["league_loop"], loop_out, loop_learner = league_loop_phase(
+        dev, cfg_env, counters, smi, per_forward, per_step, theta0)
+    launches["runtime"], runtime_out = runtime_phase(dev, cfg_env, counters, smi, per_forward,
+                                                     per_step)
+    checkpoint_phase(dev, loop_learner, smi)
+    for path in ("actors", "league_loop", "runtime"):
+        for name in ("rmsnorm", "flash_attention_fwd"):
+            check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
+    for path in ("league_loop", "runtime"):
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                     "reverse_discounted_scan_p"):
+            check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
+
+    # -- 10. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
-                   "learner seq shape", "GAE, env step", "V-trace, seq step")
+                   "learner seq shape", "GAE, env step", "V-trace, seq step", "actor forward",
+                   "served actor, grouped")
     per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
                        "env_step": per_step["env"].get(name, 0),
-                       "seq_step": per_step["seq"].get(name, 0)}
+                       "seq_step": per_step["seq"].get(name, 0),
+                       "local_segment": (2 * ACT_T + 1) * per_forward.get(name, 0),
+                       "served_segment": (ACT_T + 1) * per_forward.get(name, 0),
+                       "runtime_learner_step": runtime_out["runs"]["prefetch"][
+                           "launches_per_learner_step"].get(name, 0)}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -1260,6 +1785,12 @@ def main() -> int:
          train={k: round(v["median_step_ms"], 3) for k, v in train.items()},
          train_card_vs_cpu_max_err=learn_vs_cpu,
          league={k: round(v, 3) for k, v in league_out.items()},
+         envs_step_ms={k: v["step_ms"] for k, v in envs_out.items()},
+         actors={m: [round(v["segment_ms"], 3), round(v["frames_per_s"], 1)]
+                 for m, v in actors_out.items()},
+         league_loop=[round(loop_out["iteration_ms"], 3), round(loop_out["learn_ms"], 3)],
+         runtime={m: [v["frames_per_s"], round(v["learn_ms_median"], 3)]
+                  for m, v in runtime_out["runs"].items()},
          seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -133,6 +133,18 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`. Actor and learner threads launch
+    kernels at once, and `+=` on an attribute is a read, an add and a write
+    that another thread can split, losing an increment; the lock keeps every
+    one. A count is reset by assigning 0."""
+    with _launch_lock:
+        wrapper.launches += 1
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by an entry point."""
     if err:

@@ -128,7 +128,7 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                         kv_len, int(q.dtype == torch.bfloat16), int(mixed),
                         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd")
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd)
     return o, lse
 
 
@@ -182,7 +182,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
                            kv_len, int(q.dtype == torch.bfloat16),
                            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _build.count_launch(flash_attention_bwd_dq)
     return dq, delta
 
 
@@ -208,7 +208,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
                             kv_len, int(q.dtype == torch.bfloat16),
                             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _build.count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 

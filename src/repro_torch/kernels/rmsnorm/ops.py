@@ -48,7 +48,7 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
                           rows_per_weight, eps, int(x.dtype == torch.bfloat16),
                           torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rmsnorm_fwd")
-    rmsnorm.launches += 1
+    _build.count_launch(rmsnorm)
     return y
 
 

@@ -58,7 +58,7 @@ def reverse_discounted_scan_p(deltas, decays, init):
                            y.data_ptr(), B, T, int(deltas.dtype == torch.bfloat16),
                            torch.cuda.current_stream(deltas.device).cuda_stream)
     _build.check(err, "reverse_scan")
-    reverse_discounted_scan_p.launches += 1
+    _build.count_launch(reverse_discounted_scan_p)
     return y
 
 

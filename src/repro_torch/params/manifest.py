@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils.host import host_bytes
 from repro_torch.utils.pytree import tree_flatten_with_path, tree_unflatten
 
 _BF16 = "<V2"          # ml_dtypes' bfloat16 dtype string
@@ -74,16 +75,8 @@ def _leaf_hashes(leaves: List[Tuple[str, Any]]) -> Dict[str, str]:
     dev = [(p, x) for p, x in leaves if isinstance(x, torch.Tensor) and x.is_cuda]
     host: Dict[str, Any] = {}
     if dev:
-        flat = torch.cat([x.detach().contiguous().reshape(-1).view(torch.uint8)
-                          for _, x in dev])
-        buf = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
-        buf.copy_(flat, non_blocking=True)
-        torch.cuda.current_stream(flat.device).synchronize()
-        raw, ofs = buf.numpy(), 0
-        for p, x in dev:
-            n = x.numel() * x.element_size()
-            host[p] = _digest(_dtype_str(x.dtype), tuple(x.shape), raw[ofs:ofs + n])
-            ofs += n
+        for (p, x), raw in zip(dev, host_bytes([x for _, x in dev])):
+            host[p] = _digest(_dtype_str(x.dtype), tuple(x.shape), raw)
     return {p: host[p] if p in host else leaf_hash(x) for p, x in leaves}
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the learner's league side (the DataServer's staging, manifests of card
-tensors, the Learner) against its CPU run.
+the learner's league side (the DataServer's staging, manifests of card
+tensors, the Learner) against its CPU run, the envs' steps on the card
+against the CPU's (bitwise), and an Actor segment's exact kernel launches.
 
 Marked `cuda`: every test skips where there is no CUDA device, since a CUDA
 kernel has no CPU mode. This file imports neither jax nor `repro`, so the
@@ -437,3 +438,55 @@ def test_learner_on_cuda_matches_cpu(gen):
     key = card.current_key
     assert card.league.model_pool.version(key) == cpu.league.model_pool.version(key) == 3
     assert card.data_server.prefetch_hits == cpu.data_server.prefetch_hits == 3
+
+
+@pytest.mark.parametrize("name", ["rps", "duel", "pommerman_lite"])
+def test_env_steps_on_the_card_equal_the_cpu_bitwise(gen, name):
+    """64 steps at 64 slots from one state (reset on the card, copied to
+    the CPU), actions from a numpy seed: every state leaf, obs, done and
+    info entry bitwise equal, rewards within 1e-6."""
+    from repro_torch.envs import make_env
+
+    card, cpu = make_env(name, device="cuda"), make_env(name, device="cpu")
+    s_card, _ = card.reset(gen, 64)
+    s_cpu = {k: v.cpu() for k, v in s_card.items()}
+    rng = np.random.default_rng(3)
+    for _ in range(64):
+        a = rng.integers(0, card.spec.num_actions, (64, card.spec.num_agents)).astype(np.int32)
+        s_card, o_card, r_card, d_card, i_card = card.step(s_card, torch.from_numpy(a).cuda(), gen)
+        s_cpu, o_cpu, r_cpu, d_cpu, i_cpu = cpu.step(s_cpu, torch.from_numpy(a), None)
+        for k in s_cpu:
+            assert s_card[k].dtype == s_cpu[k].dtype and torch.equal(s_card[k].cpu(), s_cpu[k]), k
+        assert torch.equal(o_card.cpu(), o_cpu) and torch.equal(d_card.cpu(), d_cpu)
+        assert set(i_card) == set(i_cpu)
+        assert all(torch.equal(i_card[k].cpu(), v) for k, v in i_cpu.items())
+        assert (r_card.cpu() - r_cpu).abs().max().item() <= 1e-6
+
+
+def test_actor_segment_launches_exactly_its_forwards(gen):
+    """A local Actor segment on the card (pommerman_lite, 4 envs x 5 steps,
+    policy-s) launches exactly 2T + 1 forwards' kernels: 2L + 1 RMSNorms and
+    L attention forwards each, nothing of the backward; a served segment
+    exactly T + 1 flushes' worth."""
+    from repro_torch.actors import Actor
+    from repro_torch.envs import make_env
+
+    cfg = get_arch("tleague-policy-s")
+    L, T = cfg.num_layers, 5
+    kernels = (rmsnorm, flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+               reverse_discounted_scan_p)
+    env = make_env("pommerman_lite", device="cuda")
+    for served in (False, True):
+        league = LeagueMgr(seed=0)
+        league.add_learning_agent("main", init_params(gen, cfg),
+                                  game_mgr=SelfPlayPFSPGameMgr(payoff=None))
+        server = InfServer(cfg, 6, device="cuda") if served else None
+        actor = Actor(env, cfg, league, num_envs=4, unroll_len=T, inf_server=server,
+                      device="cuda")
+        actor.run_segment()                      # builds and warms
+        for k in kernels:
+            k.launches = 0
+        traj, _ = actor.run_segment()
+        forwards = T + 1 if served else 2 * T + 1
+        assert [k.launches for k in kernels] == [forwards * (2 * L + 1), forwards * L, 0, 0, 0]
+        assert traj["obs"].shape == (8, T, 26) and traj["actions"].dtype == np.int32
