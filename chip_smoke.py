@@ -46,7 +46,23 @@ drives the port's three paths on the card:
   launching exactly its learner steps' and its segments' or flushes'
   kernels; `learn()` wall with prefetch on and off;
 - checkpoint: the Learner's θ on the card saved and loaded on the CPU,
-  bitwise.
+  bitwise;
+- transport: an on-card InfServer, a DataServer and a ModelPool behind
+  one `RpcServer`: a 256-row flush over RPC equal to the in-process one,
+  θ pushed from the card and pulled back bitwise (under this machine's
+  codec and under pickle) with the in-process pool's manifest hashes; the
+  round trip, the pulls and a segment's `put_when_room` timed;
+- multiprocess: `python -m repro_torch.launch.train --workers W` (W = 2
+  and 4 with local actors, 2 served), to 16 learner steps per role under
+  a step gate of 8, no actor respawned: a clean shutdown with no actor
+  restarted and no segment dropped, every learner froze, and every
+  process (coordinator, learners, actors) on the card with exactly its
+  learner steps', segments' or flushes' launches, read from the JSON line
+  each prints; the league's rate once every learner has stepped;
+- fleet: `serve_fleet(2)`: two replica processes behind a ServingGateway,
+  a probe per lineage against the CPU's plain forward, both replicas
+  serving with exactly their flushes' launches, rows/s in warm windows
+  alternated with one in-process InfServer's.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -102,6 +118,17 @@ ENV_REWARD_TOL = 1e-6
 LOOP_PERIODS, LOOP_ITERS = 2, 8    # examples/quickstart.py's loop
 RUNTIME_STEP_GATE, RUNTIME_FREEZES = 8, 2
 RUNTIME_MAX_S = 300.0
+# the league across processes: the transport in one process, the
+# multiprocess league as `launch.train --workers W` runs it, the fleet
+TRANSPORT_SEGMENT_ROWS = 2 * ACT_E
+TRANSPORT_FLUSHES, TRANSPORT_RTT_CALLS, TRANSPORT_PULLS, TRANSPORT_PUTS = 20, 200, 10, 8
+MP_RUNS = ((2, False), (4, False), (2, True))   # (actor processes, served)
+MP_STEPS, MP_TIMEOUT_S = 16, 300.0
+FLEET_REPLICAS, FLEET_ROUNDS, FLEET_ROWS = 2, 50, 64
+# rows/s through the warm fleet and through one in-process InfServer,
+# alternated: windows of rounds of FLEET_REPLICAS x FLEET_ROWS rows each
+FLEET_WINDOWS, FLEET_WINDOW_ROUNDS = 3, 200
+FLEET_DEADLINE_MS = 250.0                      # serve_fleet's default
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -1053,6 +1080,386 @@ def checkpoint_phase(dev, learner, smi):
          save_ms=save_ms, bitwise=True)
 
 
+def transport_phase(dev, cfg, counters, smi, per_forward):
+    """The RPC transport in one process, on the card. An `RpcServer` hosts
+    an on-card policy-s InfServer (through `InfServerBackend`), a
+    DataServer and a ModelPool. Over an `RpcClient`, a 256-row flush of
+    pommerman_lite obs gives the in-process flush's outputs (two servers
+    of one seed, as `tests/test_transport.py` holds them). θ (CUDA fp32)
+    is pushed through `ModelPoolClient` and pulled back bitwise, and the
+    remote manifest's hashes equal an in-process pool's over the same θ.
+    Timed: the no-op round trip, a full, a NotModified and a delta pull
+    (ms and wire bytes), and a `put_when_room` of one actor segment.
+    Launches exactly the flushes'. Returns (launches, numbers)."""
+    import torch
+
+    from repro_torch.core import ModelKey, ModelPool
+    from repro_torch.distributed import transport as tp
+    from repro_torch.distributed.heartbeat import Heartbeat
+    from repro_torch.infserver import InfServer
+    from repro_torch.learners import DataServer
+    from repro_torch.models import init_params
+    from repro_torch.utils import tree_flatten_with_path, tree_map
+
+    theta = init_params(torch.Generator(device=dev).manual_seed(31), cfg)
+    obs = np.random.default_rng(31).integers(0, cfg.vocab_size, (ROWS, OBS_LEN)).astype(np.int32)
+    rng = np.random.default_rng(32)
+    traj = {"obs": rng.integers(0, 8, (TRANSPORT_SEGMENT_ROWS, ACT_T, OBS_LEN)).astype(np.int32),
+            "actions": rng.integers(0, NUM_ACTIONS, (TRANSPORT_SEGMENT_ROWS, ACT_T)).astype(np.int32),
+            "behavior_logp": rng.normal(size=(TRANSPORT_SEGMENT_ROWS, ACT_T)).astype(np.float32),
+            "behavior_values": rng.normal(size=(TRANSPORT_SEGMENT_ROWS, ACT_T)).astype(np.float32),
+            "rewards": rng.normal(size=(TRANSPORT_SEGMENT_ROWS, ACT_T)).astype(np.float32),
+            "done": rng.random((TRANSPORT_SEGMENT_ROWS, ACT_T)) < 0.05,
+            "bootstrap_value": rng.normal(size=(TRANSPORT_SEGMENT_ROWS,)).astype(np.float32)}
+    key = ModelKey("main", 0)
+    zero(counters)
+    local = InfServer(cfg, NUM_ACTIONS, theta, device=dev, max_batch=ROWS, seed=13)
+    remote_server = InfServer(cfg, NUM_ACTIONS, theta, device=dev, max_batch=ROWS, seed=13)
+    pool = ModelPool()
+    ds = DataServer(capacity_frames=4 * TRANSPORT_SEGMENT_ROWS * ACT_T, blocking=True, device=dev)
+    srv = tp.RpcServer({"inf": tp.InfServerBackend(remote_server), "data": ds, "pool": pool,
+                        "ctrl": Heartbeat()}).start()
+    client = tp.RpcClient(srv.address)
+    inf = tp.InfServerClient(client)
+    pool_c, data_c = tp.ModelPoolClient(client), tp.DataServerClient(client)
+    out = {"codec": tp.CODEC}
+    try:
+        want = local.get(local.submit(obs))
+        got = inf.get(inf.submit(obs))
+        check(np.array_equal(got[0], want[0]), "transport: remote actions differ from in-process")
+        flush_err = max(float(np.abs(a - b).max()) for a, b in zip(got[1:], want[1:]))
+        check(flush_err == 0.0, f"transport: remote logp/values off in-process by {flush_err}")
+        flush_ms = []
+        for _ in range(TRANSPORT_FLUSHES):
+            t0 = time.perf_counter()
+            inf.get(inf.submit(obs))
+            flush_ms.append(1e3 * (time.perf_counter() - t0))
+        local_ms = []
+        for _ in range(TRANSPORT_FLUSHES):
+            t0 = time.perf_counter()
+            local.get(local.submit(obs))
+            local_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = read(counters)
+        check_on_card("transport")
+        flushes = local.batches_run + remote_server.batches_run
+        want_l = {n: flushes * per_forward.get(n, 0) for n in launches}
+        check(launches == want_l, f"transport: launches {launches}, want {want_l}")
+        out["flush_256"] = {"rpc_ms_median": statistics.median(flush_ms),
+                            "inproc_ms_median": statistics.median(local_ms), "max_abs_err": flush_err}
+        out["shm"] = client.transport_stats()["shm"]
+        rtt = []
+        for _ in range(TRANSPORT_RTT_CALLS):
+            t0 = time.perf_counter()
+            client.call("ctrl.ping")
+            rtt.append(1e3 * (time.perf_counter() - t0))
+        out["noop_rtt_ms_median"] = statistics.median(rtt)
+
+        # θ over the wire: CUDA fp32 tensors in, numpy out, bitwise; under
+        # this machine's codec and under pickle (the fallback without msgpack)
+        host = tree_map(lambda t: t.cpu().numpy(), theta)
+        theta2 = {**theta, "embed": tree_map(lambda t: t + 1.0, theta["embed"])}
+        changed = sorted(p for p, _ in tree_flatten_with_path(theta)[0] if p.startswith("['embed']"))
+        ref_pool = ModelPool()
+        ref_pool.push(key, theta)
+        saved = tp.CODEC
+        out["pulls"] = {}
+        for codec in dict.fromkeys([tp.CODEC, "pickle"]):
+            tp.CODEC = codec
+            try:
+                ckey = ModelKey(f"main_{codec}", 0)
+                t0 = time.perf_counter()
+                pool_c.push(ckey, theta)
+                timed = {"push_ms": 1e3 * (time.perf_counter() - t0)}
+
+                def pulls(have, ckey=ckey):
+                    ms = []
+                    for _ in range(TRANSPORT_PULLS):
+                        t0 = time.perf_counter()
+                        ans = pool_c.pull_if_changed(ckey, have)
+                        ms.append(1e3 * (time.perf_counter() - t0))
+                    return ans, {"ms_median": statistics.median(ms),
+                                 "wire_bytes": len(tp.packb(ans))}
+                ans, timed["full"] = pulls(None)
+                pairs = zip(tree_flatten_with_path(ans.params)[0], tree_flatten_with_path(host)[0])
+                check(all(pa == pb and isinstance(a, np.ndarray) and a.dtype == b.dtype
+                          and np.array_equal(a, b) for (pa, a), (pb, b) in pairs),
+                      f"transport {codec}: pulled θ is not θ bitwise")
+                check(ans.manifest.leaf_hashes == ref_pool.manifest(key).leaf_hashes
+                      and ans.manifest.tree_hash == ref_pool.manifest(key).tree_hash,
+                      f"transport {codec}: the remote manifest's hashes are not the "
+                      f"in-process pool's")
+                out["param_bytes"] = ans.manifest.nbytes
+                ans, timed["not_modified"] = pulls(0)
+                check(isinstance(ans, tp.NotModified), f"transport {codec}: {type(ans).__name__}")
+                pool_c.push(ckey, theta2)                # a delta: only the embedding changes
+                ans, timed["delta_embed"] = pulls(0)
+                check(not ans.full and sorted(ans.leaves) == changed,
+                      f"transport {codec}: the delta carries {sorted(ans.leaves or [])}, "
+                      f"want {changed}")
+                timed["delta_embed"]["leaf_bytes"] = int(sum(a.nbytes
+                                                             for a in ans.leaves.values()))
+                out["pulls"][codec] = timed
+            finally:
+                tp.CODEC = saved
+
+        # one actor segment through put_when_room, consumed between puts
+        put_ms = []
+        for _ in range(TRANSPORT_PUTS):
+            t0 = time.perf_counter()
+            check(data_c.put_when_room(traj, timeout=10.0), "transport: put_when_room timed out")
+            put_ms.append(1e3 * (time.perf_counter() - t0))
+            ds.sample()
+        out["put_when_room_ms_median"] = statistics.median(put_ms)
+        out["segment_bytes"] = int(sum(a.nbytes for a in traj.values()))
+    finally:
+        client.close()
+        srv.close()
+    emit("transport", card=smi, launches=launches, **out)
+    return launches, out
+
+
+def steady_ms(rec):
+    """Mean ms per call after the first, from a `[seconds, calls, first
+    call's seconds]` record of a worker's result line."""
+    total, calls, first = rec
+    return 1e3 * (total - first) / max(1, calls - 1)
+
+
+def league_procs(lines):
+    """The JSON result lines of a multiprocess run, by process kind."""
+    procs = {}
+    for line in lines:
+        if line.startswith("{"):
+            rec = json.loads(line)
+            procs.setdefault(rec.get("process"), []).append(rec)
+    return procs
+
+
+def multiprocess_phase(smi, per_forward, per_step):
+    """The league as users start it: `python -m repro_torch.launch.train
+    --workers W` on pommerman_lite (16 envs x unroll 16, policy-s) with
+    main_minimax.json's two roles under FreezeGate(step_gate=8), to 16
+    learner steps per role: W = 2 and W = 4 with local actors, then W = 2
+    served by the coordinator's InfServer. Each run exits 0 with a clean
+    shutdown; every learner reached 16 steps and froze; every process ran
+    on the card (no plain version) and launched exactly: a learner its
+    steps' env-step kernels, a local actor (2T + 1) forwards per segment,
+    the served coordinator its flushes' forwards. Returns (launches,
+    numbers)."""
+    spec = json.loads((ROOT / "examples" / "league_specs" / "main_minimax.json").read_text())
+    for role in spec["roles"]:
+        role["gate"] = {"step_gate": RUNTIME_STEP_GATE}
+    spec_path = ROOT / "build" / "chip_smoke" / "main_minimax_step_gate.json"
+    spec_path.parent.mkdir(parents=True, exist_ok=True)
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    seg_frames = ACT_E * ACT_T
+    total = {}
+    runs = {}
+    for workers, served in MP_RUNS:
+        mode = f"w{workers}" + ("_served" if served else "")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--workers", str(workers),
+               "--env", "pommerman_lite", "--num-envs", str(ACT_E), "--unroll-len", str(ACT_T),
+               "--max-steps", str(MP_STEPS), "--league-spec", str(spec_path),
+               "--max-actor-restarts", "0"]
+        if served:
+            cmd.append("--served")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=MP_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        command_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"multiprocess {mode}: exit {proc.returncode}\n{stderr[-6000:]}")
+        procs = league_procs(stdout.splitlines())
+        (coord,) = procs["coordinator"]
+        learners, actors = procs.get("learner", []), procs.get("actor", [])
+        check(coord["clean_shutdown"] and coord["worker_exit_codes"] == [0] * (2 + workers)
+              and coord["actor_restarts"] == 0,
+              f"multiprocess {mode}: exit codes {coord['worker_exit_codes']}, "
+              f"{coord['actor_restarts']} actor restarts")
+        check(len(learners) == 2 and len(actors) == workers,
+              f"multiprocess {mode}: {len(learners)} learner and {len(actors)} actor lines")
+        check(all(r["segments_dropped"] == 0 for r in actors),
+              f"multiprocess {mode}: segments dropped {[r['segments_dropped'] for r in actors]}")
+        for rec in learners + actors + [coord]:
+            k = rec["kernels"]
+            check(not any("|reference" in t for t in k["dispatch"]) and k["peak_cuda_bytes"],
+                  f"multiprocess {mode}: a {rec['process']} ran off the card: {k}")
+        got = {}
+        for rec in learners:
+            steps, n = rec["steps"], rec["kernels"]["launches"]
+            check(steps >= MP_STEPS and rec["freezes"] >= 1,
+                  f"multiprocess {mode}: learner {rec['role']} {steps} steps, "
+                  f"{rec['freezes']} freezes")
+            want = {x: steps * per_step["env"][x] for x in n}
+            check(n == want, f"multiprocess {mode}: learner {rec['role']} launches {n}, "
+                             f"want {want} for {steps} steps")
+            check(n["reverse_discounted_scan_p"] == steps
+                  and n["flash_attention_bwd_dkv"] == 2 * steps,
+                  f"multiprocess {mode}: learner scan/dkv launches {n}")
+        segments = 0
+        for rec in actors:
+            n, segs = rec["kernels"]["launches"], rec["frames_produced"] // seg_frames
+            segments += segs
+            forwards = 0 if served else segs * (2 * ACT_T + 1)
+            want = {x: forwards * per_forward.get(x, 0) for x in n}
+            check(n == want, f"multiprocess {mode}: actor {rec['actor']} launches {n}, "
+                             f"want {want} for {segs} segments")
+        n = coord["kernels"]["launches"]
+        flushes = coord["serving"]["batches_run"] if served else 0
+        want = {x: flushes * per_forward.get(x, 0) for x in n}
+        check(n == want, f"multiprocess {mode}: coordinator launches {n}, want {want} "
+                         f"for {flushes} flushes")
+        for rec in learners + actors + [coord]:
+            for x, c in rec["kernels"]["launches"].items():
+                got[x] = got.get(x, 0) + c
+        for x, c in got.items():
+            total[x] = total.get(x, 0) + c
+        wall = coord["wall_s"]
+        steps = sum(r["steps"] for r in learners)
+        runs[mode] = {
+            "workers": workers, "served": served, "wall_s": wall, "command_s": command_s,
+            "frames_reported": coord["progress"]["frames_total"],
+            "frames_per_s": coord["progress"]["frames_total"] / wall,
+            # the league once every learner has stepped: start-up and the
+            # cold first step behind it, over the coordinator's clock
+            "after_first_steps": coord["after_first_steps"],
+            "frames_produced": sum(r["frames_produced"] for r in actors),
+            "segments": segments, "learner_steps": steps, "learner_steps_per_s": steps / wall,
+            "segment_ms_per_actor": 1e3 * wall / max(1, segments / workers),
+            "freezes": {r["role"]: r["freezes"] for r in learners},
+            "flushes": flushes, "cpu_count": os.cpu_count(),
+            # each actor's own rate over its segment loop (start-up excluded),
+            # summed: the actors play at once
+            "actor_loop_frames_per_s": sum(r["frames_produced"] / r["loop_s"] for r in actors),
+            "actor_loop_s": [r["loop_s"] for r in actors],
+            # where each worker's loop went (its `seconds`: per part [s, calls,
+            # first call's s]): a learner's learn / wait_ready / freeze, an
+            # actor's segment / settle / ship; then the steady state, the
+            # first call (which warms up the card's libraries) taken out
+            "seconds": {**{f"learner/{r['role']}": r["seconds"] for r in learners},
+                        **{f"actor/{r['actor']}": r["seconds"] for r in actors}},
+            "first_learn_s": [r["seconds"]["learn"][2] for r in learners],
+            "first_segment_s": [r["seconds"]["segment"][2] for r in actors],
+            "steady_learn_ms": [steady_ms(r["seconds"]["learn"]) for r in learners],
+            "steady_segment_ms": [steady_ms(r["seconds"]["segment"]) for r in actors],
+            # `run_segment` alone (no settle, no ship), first call out: what
+            # the actors could give if nothing else held them
+            "actor_segment_only_frames_per_s": sum(
+                seg_frames / steady_ms(r["seconds"]["segment"]) * 1e3 for r in actors),
+            "peak_cuda_bytes": {"coordinator": coord["kernels"]["peak_cuda_bytes"],
+                                **{f"learner/{r['role']}": r["kernels"]["peak_cuda_bytes"]
+                                   for r in learners},
+                                **{f"actor/{r['actor']}": r["kernels"]["peak_cuda_bytes"]
+                                   for r in actors}},
+            "segments_unsettled_at_stop": sum(r["segments_unsettled_at_stop"] for r in actors),
+            "leases": coord["leases"], "launches": got}
+        emit("multiprocess", card=smi, mode=mode, env="pommerman_lite", envs=ACT_E, unroll=ACT_T,
+             step_gate=RUNTIME_STEP_GATE, max_steps=MP_STEPS, **runs[mode])
+    return total, runs
+
+
+def fleet_phase(dev, cfg, smi, per_forward):
+    """`serve_fleet(2)` on the card: two replica processes behind a
+    ServingGateway, pommerman_lite obs, 50 rounds of 2 x 64 rows. Both
+    replicas served rows and launched exactly their flushes' forwards on
+    the card; the rollout shipped θ to both; a probe through the gateway
+    agrees with the CPU's plain forward on the same params and obs within
+    BWD_TOL of max(1, max |plain|). Rows/s: after the probes have warmed
+    both replicas, FLEET_WINDOWS windows of FLEET_WINDOW_ROUNDS rounds at
+    the demo's request shape go through the gateway, each followed by the
+    same traffic through one in-process InfServer on the card. Returns
+    (launches, numbers)."""
+    import torch
+
+    from repro_torch.actors.policy import make_obs_policy
+    from repro_torch.infserver import InfServer
+    from repro_torch.launch.serve import serve_fleet
+    from repro_torch.rl import categorical_logp
+    from repro_torch.utils import tree_map
+
+    probe, windows = {}, {}
+
+    def on_rollout(gw, params, keys):
+        """One probe per lineage (each lineage has its home replica, so
+        both replicas serve one and are warm before the timed traffic)."""
+        obs = np.random.default_rng(41).integers(0, 8, (FLEET_ROWS, OBS_LEN)).astype(np.int32)
+        pol = make_obs_policy(cfg, NUM_ACTIONS)
+        for key in keys:
+            a, logp, v = gw.get(gw.submit(obs, model=key))
+            with torch.no_grad():
+                lg, v_ref = pol.logits_values(tree_map(lambda t: t.cpu(), params),
+                                              torch.from_numpy(obs).long())
+                logp_ref = categorical_logp(lg, torch.from_numpy(a).long())
+            for k, got, want in (("logp", logp, logp_ref), ("values", v, v_ref)):
+                want = want.float().numpy()
+                err = float(np.abs(got - want).max() / max(1.0, float(np.abs(want).max())))
+                probe[k] = max(probe.get(k, 0.0), err)
+        probe["warm_routed"] = [r["routed_requests"] for r in gw.stats()["replicas"]]
+        server = InfServer(cfg, NUM_ACTIONS, params, device=dev, max_batch=256)
+        rng = np.random.default_rng(0)
+        for _ in range(FLEET_WINDOWS):
+            for name, submit, get in (
+                    ("gateway", lambda o: gw.submit(o, model=keys[rng.integers(len(keys))],
+                                                    deadline_s=FLEET_DEADLINE_MS / 1e3), gw.get),
+                    ("inproc", server.submit, server.get)):
+                t0 = time.perf_counter()
+                for _ in range(FLEET_WINDOW_ROUNDS):
+                    tickets = [submit(rng.integers(0, 8, (FLEET_ROWS, OBS_LEN)).astype(np.int32))
+                               for _ in range(FLEET_REPLICAS)]
+                    for t in tickets:
+                        get(t)
+                windows.setdefault(name, []).append(
+                    FLEET_WINDOW_ROUNDS * FLEET_REPLICAS * FLEET_ROWS
+                    / (time.perf_counter() - t0))
+
+    st = serve_fleet(FLEET_REPLICAS, arch=cfg.name, env_name="pommerman_lite",
+                     demo_rounds=FLEET_ROUNDS, demo_rows=FLEET_ROWS,
+                     deadline_ms=FLEET_DEADLINE_MS, verbose=False, on_rollout=on_rollout)
+    check(max(probe["logp"], probe["values"]) <= BWD_TOL["bfloat16"],
+          f"fleet: probe off the CPU's plain forward by {probe}")
+    check(probe["warm_routed"] == [1] * FLEET_REPLICAS,
+          f"fleet: the probes reached the replicas {probe['warm_routed']} times, want once each")
+    check(all(r["shipped_to"] == FLEET_REPLICAS for r in st["rollouts"].values()),
+          f"fleet: rollout shipped to {[r['shipped_to'] for r in st['rollouts'].values()]}")
+    reps = st["replica_reports"]
+    check(len(reps) == FLEET_REPLICAS and all(r["rows_served"] > 0 for r in reps),
+          f"fleet: replicas served {[r.get('rows_served') for r in reps]} rows")
+    launches = {}
+    for r in reps:
+        k = r["kernels"]
+        check(not any("|reference" in t for t in k["dispatch"]) and k["peak_cuda_bytes"],
+              f"fleet: a replica ran off the card: {k}")
+        want = {x: r["batches_run"] * per_forward.get(x, 0) for x in k["launches"]}
+        check(k["launches"] == want, f"fleet: replica launches {k['launches']}, want {want}")
+        for x, c in k["launches"].items():
+            launches[x] = launches.get(x, 0) + c
+    out = {"replicas": FLEET_REPLICAS, "rounds": FLEET_ROUNDS, "rows_per_request": FLEET_ROWS,
+           "window_rounds": FLEET_WINDOW_ROUNDS,
+           "gateway_rows_per_s": statistics.median(windows["gateway"]),
+           "inproc_rows_per_s": statistics.median(windows["inproc"]),
+           "gateway_windows_rows_per_s": windows["gateway"],
+           "inproc_windows_rows_per_s": windows["inproc"],
+           "demo_rows_per_s": st["demo"]["rows_per_s"], "demo_s": st["demo"]["seconds"],
+           "probe_rel_err": {k: probe[k] for k in ("logp", "values")},
+           "rollout_bytes": {k: r["bytes_shipped"] for k, r in st["rollouts"].items()},
+           "rollout_ms": {k: r["propagation_ms"] for k, r in st["rollouts"].items()},
+           "replica_rows": [r["rows_served"] for r in reps],
+           "replica_batches": [r["batches_run"] for r in reps],
+           "replica_mean_batch_ms": [r["mean_batch_latency_ms"] for r in reps],
+           "deadlines": st["deadlines"], "failovers": st["failovers"],
+           "peak_cuda_bytes": [r["kernels"]["peak_cuda_bytes"] for r in reps]}
+    emit("fleet", card=smi, launches=launches, **out)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -1736,15 +2143,21 @@ def main() -> int:
     launches["runtime"], runtime_out = runtime_phase(dev, cfg_env, counters, smi, per_forward,
                                                      per_step)
     checkpoint_phase(dev, loop_learner, smi)
-    for path in ("actors", "league_loop", "runtime"):
+
+    # -- 10. the league across processes: transport, multiprocess, fleet ------
+    launches["transport"], transport_out = transport_phase(dev, cfg_env, counters, smi,
+                                                           per_forward)
+    launches["multiprocess"], mp_out = multiprocess_phase(smi, per_forward, per_step)
+    launches["fleet"], fleet_out = fleet_phase(dev, cfg_env, smi, per_forward)
+    for path in ("actors", "league_loop", "runtime", "transport", "multiprocess", "fleet"):
         for name in ("rmsnorm", "flash_attention_fwd"):
             check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
-    for path in ("league_loop", "runtime"):
+    for path in ("league_loop", "runtime", "multiprocess"):
         for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                      "reverse_discounted_scan_p"):
             check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
 
-    # -- 10. summary -------------------------------------------------------------
+    # -- 11. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
@@ -1791,6 +2204,17 @@ def main() -> int:
          league_loop=[round(loop_out["iteration_ms"], 3), round(loop_out["learn_ms"], 3)],
          runtime={m: [v["frames_per_s"], round(v["learn_ms_median"], 3)]
                   for m, v in runtime_out["runs"].items()},
+         transport={"noop_rtt_ms": round(transport_out["noop_rtt_ms_median"], 4),
+                    "pull_ms": {c: {k: round(v["ms_median"], 3) for k, v in p.items()
+                                    if k != "push_ms"}
+                                for c, p in transport_out["pulls"].items()},
+                    "put_ms": round(transport_out["put_when_room_ms_median"], 3)},
+         multiprocess={m: [round(v["frames_per_s"], 1),
+                           round((v["after_first_steps"] or {}).get("frames_per_s") or 0.0, 1),
+                           round(v["actor_loop_frames_per_s"], 1),
+                           round(v["actor_segment_only_frames_per_s"], 1),
+                           round(v["learner_steps_per_s"], 2)] for m, v in mp_out.items()},
+         fleet=[round(fleet_out["gateway_rows_per_s"]), round(fleet_out["inproc_rows_per_s"])],
          seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,10 @@
-"""Distribution for the port; counterpart of `repro.distributed`. Only the
-in-process heartbeat is here so far: the transport, the RPC heartbeat
-monitor and sharding come with ROADMAP queue 1 items 7 and 8."""
-from repro_torch.distributed.heartbeat import BeatRegistry, Heartbeat
+"""Distribution for the port; counterpart of `repro.distributed`: the RPC
+transport the league's processes talk over, and liveness. Sharding is
+ROADMAP queue 1 item 8 and is not here yet."""
+from repro_torch.distributed.heartbeat import (BeatRegistry, Heartbeat,
+                                               HeartbeatMonitor, probe)
+from repro_torch.distributed.transport import (
+    CODEC, DataServerClient, FaultPlan, FaultRule, InfServerBackend,
+    InfServerClient, LeagueMgrClient, ModelPoolClient, RemoteError,
+    RetryableError, RetryPolicy, RpcClient, RpcServer, TransportError,
+    serve_league)

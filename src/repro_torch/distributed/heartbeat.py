@@ -1,5 +1,5 @@
-"""Liveness: heartbeats so workers can tell slow from dead; a copy of the
-framework-free part of `repro.distributed.heartbeat` (the port imports
+"""Liveness: heartbeats so workers can tell slow from dead; a copy of
+`repro.distributed.heartbeat`, which is framework-free (the port imports
 nothing of `repro`).
 
 * **`Heartbeat`** — a monotonic beat counter. The league runtime's
@@ -12,15 +12,20 @@ nothing of `repro`).
   counters, classified into alive vs stale by wall age, the signal that
   feeds the lease reaper.
 
-`repro`'s `HeartbeatMonitor` and `probe` watch a coordinator over the RPC
-transport, which the port does not have yet (ROADMAP queue 1 item 7); they
-come with it.
+* **`HeartbeatMonitor`** — the worker-process side over the RPC
+  transport: a thread that probes the coordinator's `ctrl.ping` on its own
+  connection and declares it dead when the count stops advancing.
+* **`probe`** / **`main`** — a one-shot liveness check, the k8s exec-probe
+  entry point (`python -m repro_torch.distributed.heartbeat host:port`).
+
+Both import `RpcClient` lazily, as `repro`'s do: the transport imports
+nothing of this module, and this module needs it only when they run.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 class Heartbeat:
@@ -114,3 +119,91 @@ class BeatRegistry:
     def __len__(self):
         with self._lock:
             return len(self._beats)
+
+
+class HeartbeatMonitor(threading.Thread):
+    """Watch a remote heartbeat over the worker's own probe connection.
+
+    Declares the peer dead when `ping` fails to advance for `timeout_s`
+    (transport errors count as no-advance: the monitor keeps retrying —
+    a restarting coordinator that comes back within the window is never
+    declared dead). `on_dead` runs exactly once, then the thread exits.
+    """
+
+    def __init__(self, address: str, *, interval_s: float = 1.0,
+                 timeout_s: float = 10.0, ns: str = "ctrl",
+                 on_dead: Optional[Callable[[], None]] = None):
+        super().__init__(name=f"heartbeat-monitor@{address}", daemon=True)
+        from repro_torch.distributed.transport import RpcClient
+
+        self.address = address
+        self.interval_s = interval_s
+        self.timeout_s = timeout_s
+        self.dead = False
+        self._ns = ns
+        self._on_dead = on_dead
+        self._halt = threading.Event()
+        # short socket timeout: a wedged peer must not wedge the probe
+        self._client = RpcClient(address, timeout=max(2.0, interval_s),
+                                 connect_retries=1, retry_delay_s=0.05)
+
+    def run(self):
+        last_n: Optional[int] = None
+        last_advance = time.monotonic()
+        while not self._halt.is_set():
+            try:
+                n = self._client.call(f"{self._ns}.ping")
+                if n != last_n:
+                    last_n = n
+                    last_advance = time.monotonic()
+            except Exception:             # noqa: BLE001 — ANY probe failure
+                # (TransportError, RemoteError from a version-skewed peer
+                # without ctrl.ping, decode errors) counts as no-advance
+                # and is retried: the monitor thread must never die
+                # silently, or the worker loses wedge detection entirely
+                pass
+            if time.monotonic() - last_advance > self.timeout_s:
+                self.dead = True
+                try:
+                    if self._on_dead is not None:
+                        self._on_dead()
+                finally:
+                    self._client.close()
+                return
+            self._halt.wait(self.interval_s)
+        self._client.close()
+
+    def stop(self) -> None:
+        self._halt.set()
+
+
+def probe(address: str, *, timeout_s: float = 5.0, ns: str = "ctrl") -> bool:
+    """One-shot liveness check: True iff `ns.ping` answers within
+    `timeout_s`. The k8s exec-probe entrypoint."""
+    from repro_torch.distributed.transport import RpcClient
+
+    client = RpcClient(address, timeout=timeout_s, connect_retries=1,
+                       retry_delay_s=0.05)
+    try:
+        client.call(f"{ns}.ping")
+        return True
+    except Exception:                            # noqa: BLE001 — probe is binary
+        return False
+    finally:
+        client.close()
+
+
+def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="liveness probe against a coordinator heartbeat")
+    ap.add_argument("address", help="coordinator host:port")
+    ap.add_argument("--timeout", type=float, default=5.0)
+    args = ap.parse_args()
+    addr = args.address.removeprefix("tcp://")
+    return 0 if probe(addr, timeout_s=args.timeout) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,11 +10,17 @@ loaded with `ctypes`; every entry point has its `argtypes` declared
 scalars) and returns `cudaGetLastError()`, which `check()` turns into an
 exception.
 
+Processes that start together on a fresh checkout (the league's learner,
+actor and serving processes) build once: `build()` holds an `fcntl.flock`
+on `build/repro_torch/build.lock` around its check-then-build, so the
+first builds and the rest wait and load its result.
+
 No prebuilt kernel is ever used: without `nvcc` this raises.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -93,6 +99,15 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        # across processes: the kernel releases the lock if its holder dies
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.is_file():            # built by another process while we waited
+            return out
+        return _build_locked(nvcc, srcs, out)
+
+
+def _build_locked(nvcc: str, srcs, out: Path) -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in srcs]

@@ -356,6 +356,14 @@ class LeagueRuntime:
 
 
 # ---------------------------------------------------------------------------
+def role_params(cfg, seed: int, i: int, device) -> dict:
+    """Role i's seed params, on `device`: drawn from a `torch.Generator`
+    there seeded with `seed * 1000 + i`. The threaded runtime, the
+    multiprocess coordinator, the `--sync` loop and the serving fleet all
+    make their seed params here (`repro` folds `i` into `PRNGKey(seed)`)."""
+    return init_params(torch.Generator(device=device).manual_seed(seed * 1000 + i), cfg)
+
+
 def build_runtime(spec: LeagueSpec, *, env_name: str = "rps",
                   arch: str = "tleague-policy-s", loss: str = "ppo",
                   num_envs: int = 8, unroll_len: int = 8, lr: float = 3e-4,
@@ -377,15 +385,14 @@ def build_runtime(spec: LeagueSpec, *, env_name: str = "rps",
     staging of the next batch while the current step runs).
 
     Everything runs on `device`: CUDA when None (raising where there is
-    none), the CPU when asked by name. Role i's seed params come from a
-    `torch.Generator` on that device seeded with `seed * 1000 + i`; the
-    actors' generators are seeded as `repro` seeds its actors' keys."""
+    none), the CPU when asked by name. Role i's seed params come from
+    `role_params` on that device; the actors' generators are seeded as
+    `repro` seeds its actors' keys."""
     dev = resolve_device(device)
     env = make_env(env_name, device=dev)
     cfg = get_arch(arch)
-    league = install_roles(
-        spec, lambda i: init_params(torch.Generator(device=dev).manual_seed(seed * 1000 + i), cfg),
-        pbt=pbt, seed=seed)
+    league = install_roles(spec, lambda i: role_params(cfg, seed, i, dev),
+                           pbt=pbt, seed=seed)
     opt = adamw(lr, clip_norm=1.0)
     inf_server = None
     if served:

@@ -462,3 +462,12 @@ class DataServer:
                 "prefetch_hits": self.prefetch_hits,
                 "prefetch_misses": self.prefetch_misses,
             }
+
+
+# Transport contract: both put paths COPY the segment into the
+# preallocated ring (np.copyto in _write_rows) before returning, never
+# retaining the caller's arrays — so the RPC server may hand them
+# zero-copy views into the same-host shared-memory ring instead of
+# privatizing the blobs first (see `distributed.transport._ShmReader`).
+DataServer.put._zero_copy_ok = True
+DataServer.put_when_room._zero_copy_ok = True

@@ -2,16 +2,22 @@
 
 - No module of `repro_torch`, and none of `chip_smoke.py`,
   `tools/profile_infserver.py`, `tools/profile_learner.py`,
-  `tools/time_flash.py`, `tools/time_norm_scan.py` and
+  `tools/time_flash.py`, `tools/time_norm_scan.py`, `tools/card_procs.py` and
   `tests/test_torch_cuda.py` (which runs
   on the card's machine, where there is no jax), imports jax or the JAX
   package `repro` (an AST walk, and a fresh interpreter that imports the
   whole port and finds no jax in `sys.modules`).
+- The command lines the port starts name only `repro_torch` modules, never
+  a `repro` one (an AST walk cannot see a module named in a string): the
+  multiprocess league's children (`_spawn_role`), the fleet's replicas
+  (`spawn_replica`, both with `subprocess.Popen` captured) and every
+  command that `launch.k8s.render()` writes.
 - Entry points default to CUDA and raise where there is none.
 - The kernel build raises without nvcc: there is no prebuilt fallback.
 - chip_smoke.py fails, printing no result, without a card.
 """
 import ast
+import io
 import os
 import shutil
 import subprocess
@@ -46,6 +52,7 @@ def test_port_and_chip_smoke_import_no_jax():
                                           ROOT / "tools" / "profile_learner.py",
                                           ROOT / "tools" / "time_flash.py",
                                           ROOT / "tools" / "time_norm_scan.py",
+                                          ROOT / "tools" / "card_procs.py",
                                           ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
@@ -104,3 +111,62 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=where, env=env,
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0 and r.stdout == "", (where, r.stdout, r.stderr)
+
+
+def _modules_run(cmd):
+    """The modules a command line runs with `-m`."""
+    return [cmd[i + 1] for i, a in enumerate(cmd[:-1]) if a == "-m"]
+
+
+def _assert_port_modules(mods):
+    import importlib.util
+
+    assert mods
+    for m in mods:
+        assert m.startswith("repro_torch."), m
+        assert importlib.util.find_spec(m) is not None, m
+
+
+def test_spawned_commands_run_only_port_modules(monkeypatch):
+    """Capture what the launch layer hands `subprocess.Popen`: the
+    league's role children and the fleet's replicas run `repro_torch`
+    modules, with the port's `src` first on PYTHONPATH."""
+    from repro_torch.launch import distributed
+    from repro_torch.serving import fleet
+
+    started = []
+
+    class FakeProc:
+        """Records the command; prints a replica's banner."""
+        def __init__(self, cmd, **kw):
+            started.append((cmd, kw.get("env") or {}))
+            self.stdout = io.StringIO("REPLICA 127.0.0.1:1\n")
+
+        def poll(self):
+            return None
+
+    monkeypatch.setattr(distributed.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(fleet.subprocess, "Popen", FakeProc)
+    distributed._spawn_role("learner", "127.0.0.1:1", ["--league-role", "main"])
+    distributed._spawn_role("actor", "127.0.0.1:1", ["--device", "cpu"])
+    fleet.spawn_replica(device="cpu", startup_timeout_s=5.0)
+    assert len(started) == 3
+    for cmd, env in started:
+        _assert_port_modules(_modules_run(cmd))
+        assert env["PYTHONPATH"].split(os.pathsep)[0] == str(ROOT / "src")
+    assert _modules_run(started[-1][0]) == ["repro_torch.launch.serve"]
+
+
+@pytest.mark.parametrize("kw", [{}, {"pool_replicas": 2, "serving_replicas": 2}])
+def test_k8s_commands_run_only_port_modules(kw):
+    import json as _json
+    import re
+
+    from repro_torch.launch.k8s import render
+
+    out = render(**kw)
+    cmds = [_json.loads(m) for m in re.findall(r"command: (\[[^\]]*\])", out, re.S)]
+    assert len(cmds) >= 5
+    _assert_port_modules([m for c in cmds for m in _modules_run(c)])
+    assert "repro.launch" not in out and "repro.distributed" not in out
+
