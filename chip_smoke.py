@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` and
-drives the port's three paths on the card:
+drives the port's paths on the card:
 
 - serving: holds the forward kernels (RMSNorm, flash-attention forward)
   against their plain PyTorch versions at the serving shapes, serves the
@@ -62,7 +62,15 @@ drives the port's three paths on the card:
 - fleet: `serve_fleet(2)`: two replica processes behind a ServingGateway,
   a probe per lineage against the CPU's plain forward, both replicas
   serving with exactly their flushes' launches, rows/s in warm windows
-  alternated with one in-process InfServer's.
+  alternated with one in-process InfServer's;
+- decode: the dense family's serving path on gemma2-2b and qwen3-8b at
+  full width and depth (bf16 compute over fp32 params): the decode demo
+  (`launch.serve.serve`), prefill of 4 x 1024 tokens and greedy KV-cache
+  decode steps with exactly their launches (RMSNorm 105 / 145 per prefill
+  and per step, the flash forward 26 / 36 per prefill and none per step),
+  a step with no host sync, decode against forward_train at fp32, gemma2's
+  sliding ring (a 4608-token prompt) and long_500k state, the InfServer
+  over the gemma2 backbone, and one repeat unit card vs CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -129,6 +137,19 @@ FLEET_REPLICAS, FLEET_ROUNDS, FLEET_ROWS = 2, 50, 64
 # alternated: windows of rounds of FLEET_REPLICAS x FLEET_ROWS rows each
 FLEET_WINDOWS, FLEET_WINDOW_ROUNDS = 3, 200
 FLEET_DEADLINE_MS = 250.0                      # serve_fleet's default
+# the decode path: gemma2-2b and qwen3-8b at full width and depth, bf16
+# compute over fp32 params (the configs' own dtypes), seeded params
+DECODE_B, DECODE_T = 4, 1024                   # prompts longer than prefill's reserve (64)
+DECODE_STEPS = {"gemma2-2b": 32, "qwen3-8b": 16}
+DECODE_PREFILLS = 3                            # timed prefills, after one warm-up
+SLIDING_T, SLIDING_STEPS = 4608, 16            # past gemma2's 4096 window
+LONG_STEPS = 16                                # long_500k: O(window) state
+DECODE_CPU_B, DECODE_CPU_T, DECODE_CPU_STEPS = 2, 80, 4
+CONSISTENCY_TOL = 1e-3                         # of max(1, max |logits|)
+# q is drawn at this scale in the gemma2 flash rows: scores of std ~8 reach
+# the softcap of 50, so dropping the cap moves o and lse past the tolerance
+GEMMA2_Q_SCALE = 8.0
+INF_REQUESTS, INF_OBS_LEN = 32, 8              # examples/serve_policy.py step 3
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -649,8 +670,9 @@ def sync_wall(fn):
 def profiled(fn, n):
     """Run fn n times under torch.profiler, each call between synchronises.
     Returns the median call's wall ms, the device busy ms and device ops per
-    call (the profiler's CUDA events) and the device's idle share over the
-    profiled window: 1 - busy / wall."""
+    call (the profiler's CUDA events), the device's idle share over the
+    profiled window: 1 - busy / wall, and the 8 device ops that took the
+    most time as [name, ms per call, launches per call]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -662,9 +684,13 @@ def profiled(fn, n):
         window_s = time.perf_counter() - t0
     dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    return {"wall_ms_profiled": statistics.median(walls), "device_busy_ms": busy_ms / n,
-            "device_ops": sum(e.count for e in dev) / n,
-            "idle_share": 1 - busy_ms / 1e3 / window_s}
+    out = {"wall_ms_profiled": statistics.median(walls), "device_busy_ms": busy_ms / n,
+           "device_ops": sum(e.count for e in dev) / n,
+           "idle_share": 1 - busy_ms / 1e3 / window_s}
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    out["top_device_ops"] = [[e.key[:120], e.self_device_time_total / 1e3 / n, e.count / n]
+                             for e in dev[:8]]
+    return out
 
 
 def envs_phase(dev, smi):
@@ -1460,6 +1486,284 @@ def fleet_phase(dev, cfg, smi, per_forward):
     return launches, out
 
 
+def norms_per_pass(cfg):
+    """RMSNorm launches per prefill or decode step: the attention and MLP
+    norms of every layer, the post-block norms (gemma2) and the q/k norms
+    (qwen3) where the config has them, and the final norm."""
+    return (2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm) * cfg.num_layers + 1
+
+
+def decode_phase(dev, counters, smi):
+    """The dense family's serving path (prefill, the ring-buffer KV cache,
+    decode_step) on gemma2-2b and qwen3-8b at full width and depth, bf16
+    compute over fp32 params. Per arch:
+
+    - `launch.serve.serve` (the decode demo) on DECODE_B x DECODE_T prompts,
+      greedy, with exactly its prefill's and its steps' launches;
+    - DECODE_PREFILLS timed prefills and DECODE_STEPS greedy uniform steps,
+      then a uniform=False step and one step under
+      `set_sync_debug_mode("error")`, each with exactly its launches
+      (RMSNorm `norms_per_pass`; the flash forward once per layer per
+      prefill, never in a step); a prefill and 3 steps profiled;
+    - decode(T | prefill(0..T-1)) against forward_train(0..T) at position
+      T: at fp32 compute within CONSISTENCY_TOL of max(1, max |logits|);
+      the same at bf16 compute recorded;
+    - gemma2-2b only: a SLIDING_T prompt over the 4096-slot ring, the
+      long_500k shape (`init_decode_state(cfg, 1, 524288, sliding=True)`),
+      and the InfServer over its backbone (examples/serve_policy.py step
+      3): INF_REQUESTS requests in one flush;
+    - card vs CPU: one repeat unit at full width, fp32 compute, a prefill of
+      DECODE_CPU_T (> reserve) tokens and DECODE_CPU_STEPS steps: logits,
+      values and every cache leaf within CARD_VS_CPU_TOL of max(1, max |cpu|),
+      positions and lengths equal."""
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_arch
+    from repro_torch.infserver import InfServer
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (decode_step, forward_train, init_decode_state, init_params,
+                                    prefill)
+    from repro_torch.utils import tree_flatten_with_path, tree_map
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    names = [c.__name__ for c in counters]
+    total = dict.fromkeys(names, 0)
+    out = {}
+
+    def counted(fn, want, what):
+        """fn() with the launch counts set to 0 just before and read just
+        after: they must equal `want` exactly."""
+        zero(counters)
+        res = fn()
+        got = read(counters)
+        for k in names:
+            total[k] += got[k]
+        check(got == {k: want.get(k, 0) for k in names}, f"{what}: launches {got}, want {want}")
+        check_on_card(what)
+        return res
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t.float()).all()) for t in ts)
+
+    def ring(state):
+        """(min, max) position held in the first layer's cache."""
+        pos = state["blocks"]["kv0"]["pos"]
+        return int(pos.min()), int(pos.max())
+
+    def held(state):
+        """The distinct counts of valid slots (pos >= 0) over every layer's
+        cache and every row."""
+        return sorted({n for c in state["blocks"].values()
+                       for n in (c["pos"] >= 0).sum(-1).flatten().tolist()})
+
+    for arch, steps in DECODE_STEPS.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        L = cfg.num_layers
+        per_prefill = {"rmsnorm": norms_per_pass(cfg), "flash_attention_fwd": L}
+        per_step = {"rmsnorm": norms_per_pass(cfg)}
+        rec = {"launches_per_prefill": per_prefill, "launches_per_step": per_step}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the user's entry point: the decode demo at full width
+        demo = counted(lambda: serve(arch, smoke=False, batch=DECODE_B, prompt_len=DECODE_T,
+                                     new_tokens=steps, temperature=0.0, device=dev),
+                       {k: per_prefill.get(k, 0) + steps * per_step.get(k, 0) for k in names},
+                       f"{arch} serve demo")
+        check(len(demo) == steps and all(t.shape == (DECODE_B, 1) for t in demo),
+              f"{arch} serve demo: tokens")
+        del demo
+
+        with torch.inference_mode():
+            params = init_params(torch.Generator(device=dev).manual_seed(11), cfg)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (DECODE_B, DECODE_T))).to(dev)
+            batch = {"tokens": toks}
+
+            prefill_ms = []                   # one warm-up, then DECODE_PREFILLS timed
+            for i in range(1 + DECODE_PREFILLS):
+                ms, (logits, values, state) = counted(
+                    lambda: sync_wall(lambda: prefill(params, cfg, batch)), per_prefill,
+                    f"{arch} prefill")
+                check(logits.shape == (DECODE_B, DECODE_T, cfg.vocab_size)
+                      and finite(logits[:, -1], values), f"{arch} prefill: outputs")
+                prefill_ms += [ms] if i else []
+            tok = first_tok = logits[:, -1:].argmax(-1)
+            del logits, values
+            check(tuple(state["blocks"]["kv0"]["k"].shape[:3])
+                  == (L // len(cfg.layer_pattern), DECODE_B, DECODE_T + 64)
+                  and ring(state) == (-1, DECODE_T - 1) and held(state) == [DECODE_T],
+                  f"{arch} prefill: the whole prompt in the cache, {ring(state)}, {held(state)}")
+
+            def step(uniform=True, window=0):
+                nonlocal tok, state
+                lg, v, state = decode_step(params, cfg, tok, state, window=window,
+                                           uniform=uniform)
+                tok = lg[:, -1:].argmax(-1)
+                return lg, v
+
+            step_ms, first = [], None
+            for i in range(steps):
+                ms, (lg, v) = counted(lambda: sync_wall(step), per_step, f"{arch} decode step")
+                check(lg.shape == (DECODE_B, 1, cfg.vocab_size) and finite(lg, v),
+                      f"{arch} decode step {i}: outputs")
+                first = lg[:, 0].float() if first is None else first
+                step_ms.append(ms)
+            lg, v = counted(lambda: step(uniform=False), per_step, f"{arch} uniform=False step")
+            check(finite(lg, v), f"{arch} uniform=False step: outputs")
+            # no host sync inside a step: the write slot stays on the card
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                counted(step, per_step, f"{arch} decode step under sync debug")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(int(state["length"][0]) == DECODE_T + steps + 2
+                  and ring(state) == (-1, DECODE_T + steps + 1)
+                  and held(state) == [DECODE_T + steps + 2],
+                  f"{arch}: state after {steps + 2} steps, {ring(state)}, {held(state)}")
+            zero(counters)
+            rec["profile_decode_step"] = profiled(step, 3)
+            rec["profile_prefill"] = profiled(lambda: prefill(params, cfg, batch), 1)
+            for k, n in read(counters).items():
+                total[k] += n
+            check_on_card(f"{arch} profiled")
+            del state
+
+            # consistency: the first decoded token's logits against
+            # forward_train over the prompt and that token, at position T
+            full = {"tokens": torch.cat([toks, first_tok], 1)}
+            cons = {"bfloat16": rel_err(first, forward_train(params, cfg, full)[0][:, DECODE_T])}
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            _, _, st32 = prefill(params, cfg32, batch)
+            d32, dv32, _ = decode_step(params, cfg32, first_tok, st32)
+            del st32
+            f32, fv32, _ = forward_train(params, cfg32, full)
+            cons["float32"] = max(rel_err(d32[:, 0], f32[:, DECODE_T]),
+                                  rel_err(dv32[:, 0], fv32[:, DECODE_T]))
+            del f32, fv32
+            check(cons["float32"] <= CONSISTENCY_TOL,
+                  f"{arch}: decode vs forward_train at fp32 {cons['float32']} > {CONSISTENCY_TOL}")
+            # bf16 is recorded, not held: decode scores attention in bf16
+            # (`_attend`, as `repro`'s decode does) and the prefill kernel in
+            # fp32 from bf16 inputs, and 26-36 bf16 layers carry the two
+            # roundings apart; the fp32 comparison above holds the algorithm
+            rec["consistency"] = {**cons, "tol": {"float32": CONSISTENCY_TOL}}
+
+            if arch == "gemma2-2b":
+                W = cfg.long_context_window
+                # sliding: the last W prompt keys in a ring of W, the local
+                # layers windowed in prefill, every layer at window W in decode
+                stoks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, SLIDING_T))).to(dev)
+                ms_p, (lg, v, state) = counted(
+                    lambda: sync_wall(lambda: prefill(params, cfg, {"tokens": stoks},
+                                                      sliding=True)),
+                    per_prefill, f"{arch} sliding prefill")
+                check(finite(lg[:, -1], v) and state["blocks"]["kv0"]["k"].shape[2] == W
+                      and ring(state) == (SLIDING_T - W, SLIDING_T - 1) and held(state) == [W],
+                      f"{arch} sliding prefill: ring {ring(state)}, {held(state)}")
+                tok = lg[:, -1:].argmax(-1)
+                del lg, v
+                sms = []
+                for _ in range(SLIDING_STEPS):
+                    ms, (lg, v) = counted(lambda: sync_wall(lambda: step(window=W)), per_step,
+                                          f"{arch} sliding step")
+                    check(finite(lg, v), f"{arch} sliding step: outputs")
+                    sms.append(ms)
+                n = SLIDING_T + SLIDING_STEPS
+                check(ring(state) == (n - W, n - 1) and held(state) == [W],
+                      f"{arch} sliding: ring after {SLIDING_STEPS} steps {ring(state)}")
+                rec["sliding"] = {"prompt": SLIDING_T, "ring": W, "prefill_ms": ms_p,
+                                  "decode_ms_median": statistics.median(sms)}
+
+                # long_500k: the assigned shape over the same O(window) ring
+                shape = INPUT_SHAPES["long_500k"]
+                state = init_decode_state(cfg, shape.global_batch, shape.seq_len, sliding=True,
+                                          device=dev)
+                tok = torch.zeros((shape.global_batch, 1), dtype=torch.long, device=dev)
+                lms = []
+                for _ in range(LONG_STEPS):
+                    ms, (lg, v) = counted(lambda: sync_wall(lambda: step(window=W)), per_step,
+                                          f"{arch} long_500k step")
+                    check(finite(lg, v), f"{arch} long_500k step: outputs")
+                    lms.append(ms)
+                check(int(state["length"][0]) == shape.seq_len + LONG_STEPS
+                      and state["blocks"]["kv0"]["k"].shape[2] == W,
+                      f"{arch} long_500k: length {int(state['length'][0])}")
+                rec["long_500k"] = {
+                    "seq_len": shape.seq_len, "ring": W,
+                    "decode_ms_median": statistics.median(lms),
+                    "state_mb": sum(a.numel() * a.element_size()
+                                    for _, a in tree_flatten_with_path(state)[0]) / 2 ** 20}
+                del state
+
+                # the InfServer over the gemma2-2b backbone: one flush
+                server = InfServer(cfg, 16, params, max_batch=INF_REQUESTS, device=dev)
+
+                def flush():
+                    tickets = [server.submit(np.zeros((1, INF_OBS_LEN), np.int32))
+                               for _ in range(INF_REQUESTS)]
+                    return [server.get(t) for t in tickets]
+                res = counted(flush, per_prefill, f"{arch} InfServer flush")
+                check(server.batches_run == 1 and server.requests_served == INF_REQUESTS
+                      and all(np.isfinite(r[1]).all() and np.isfinite(r[2]).all() for r in res),
+                      f"{arch} InfServer: {server.batches_run} flushes")
+                rec["infserver"] = {"requests": INF_REQUESTS, "flushes": server.batches_run,
+                                    "flush_ms": 1e3 * server.last_batch_latency_s}
+                del server
+            del params
+        rec.update(prefill_ms_median=statistics.median(prefill_ms),
+                   prefill_ms_each=[round(x, 3) for x in prefill_ms],
+                   decode_ms_median=statistics.median(step_ms),
+                   decode_ms_each=[round(x, 3) for x in step_ms],
+                   peak_cuda_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+        torch.cuda.empty_cache()
+
+        # card vs CPU: one repeat unit at full width, fp32 compute
+        cfg1 = dataclasses.replace(cfg, num_layers=len(cfg.layer_pattern),
+                                   compute_dtype="float32")
+        ctoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (DECODE_CPU_B, DECODE_CPU_T + DECODE_CPU_STEPS)))
+
+        def run(p, d):
+            lg, v, st = prefill(p, cfg1, {"tokens": ctoks[:, :DECODE_CPU_T].to(d)})
+            outs = [lg, v]
+            for i in range(DECODE_CPU_T, DECODE_CPU_T + DECODE_CPU_STEPS):
+                lg, v, st = decode_step(p, cfg1, ctoks[:, i:i + 1].to(d), st, uniform=i % 2 == 0)
+                outs += [lg, v]
+            return outs, st
+
+        with torch.inference_mode():
+            p_dev = init_params(torch.Generator(device=dev).manual_seed(12), cfg1)
+            o_cpu, s_cpu = run(tree_map(lambda a: a.cpu(), p_dev), torch.device("cpu"))
+            zero(counters)
+            o_dev, s_dev = run(p_dev, dev)
+            for k, n in read(counters).items():
+                total[k] += n
+            check_on_card(f"{arch} card vs CPU")
+            errs = {"logits_values": max(rel_err(a.cpu(), b) for a, b in zip(o_dev, o_cpu))}
+            leaves = list(zip(tree_flatten_with_path(s_dev)[0], tree_flatten_with_path(s_cpu)[0]))
+            errs["cache"] = max(rel_err(a.cpu(), b) for (_, a), (_, b) in leaves
+                                if a.is_floating_point())
+            check(all(torch.equal(a.cpu(), b) for (_, a), (_, b) in leaves
+                      if not a.is_floating_point()), f"{arch} card vs CPU: positions differ")
+            for what, e in errs.items():
+                check(e <= CARD_VS_CPU_TOL,
+                      f"{arch} decode card vs CPU ({what}): {e} > {CARD_VS_CPU_TOL}")
+            rec["card_vs_cpu"] = {"layers": cfg1.num_layers, "batch": DECODE_CPU_B,
+                                  "prompt": DECODE_CPU_T, "steps": DECODE_CPU_STEPS,
+                                  "max_err": errs, "tol": CARD_VS_CPU_TOL}
+            del p_dev, s_dev, o_dev
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
+        out[arch] = rec
+        emit("decode", card=smi, arch=arch, compute_dtype=cfg.compute_dtype,
+             param_dtype=cfg.param_dtype, batch=DECODE_B, prompt=DECODE_T, steps=steps, **rec)
+    emit("decode_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total)
+    return total, out
+
+
 def main() -> int:
     import torch
 
@@ -1549,9 +1853,9 @@ def main() -> int:
         """The library yardstick where no single SDPA call computes the same
         function (a causal window with a softcap): torch.compile'd
         flex_attention, the softcap as score_mod and the window as a block
-        mask. Returns {fwd_ms, bwd_ms (dq, dk and dv in one call), max_abs_err
-        of its o against the plain forward} or {error} where it does not
-        compile; the port never calls it."""
+        mask. Returns {fwd_ms, bwd_ms (dq, dk and dv in one call; only when
+        `do` is given), max_abs_err of its o against the plain forward} or
+        {error} where it does not compile; the port never calls it."""
         try:
             from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
@@ -1563,16 +1867,20 @@ def main() -> int:
 
             T = q.shape[2]
             block_mask = create_block_mask(mask_mod, None, None, T, T, device=q.device)
-            flex = torch.compile(flex_attention)
+            # static shapes: a second shape would otherwise recompile with
+            # dynamic ones, which fails to lower
+            flex = torch.compile(flex_attention, dynamic=False)
             run = lambda *a: flex(*a, score_mod=score_mod, block_mask=block_mask, scale=scale,
                                   enable_gqa=True)
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            leaves = [t.detach().requires_grad_(do is not None) for t in (q, k, v)]
             out = run(*leaves)
             ro, _ = attention_fwd_ref(q, k, v, scale=scale, causal=True, window=window, cap=cap)
-            return {"fwd_ms": device_ms(lambda: run(q, k, v)),
-                    "bwd_ms": device_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                                    retain_graph=True)),
-                    "max_abs_err": (out.detach() - ro).abs().max().item()}
+            res = {"fwd_ms": device_ms(lambda: run(q, k, v)),
+                   "max_abs_err": (out.detach() - ro).abs().max().item()}
+            if do is not None:
+                res["bwd_ms"] = device_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                                      retain_graph=True))
+            return res
         except Exception as e:                # a yardstick only: record why it is missing
             return {"error": f"{type(e).__name__}: {e}"[:400]}
 
@@ -1594,7 +1902,16 @@ def main() -> int:
                  ((ENV_B * OBS_LEN, 128), 1, torch.bfloat16, "actor forward"),
                  ((2, ENV_B, OBS_LEN, 128), 2, torch.bfloat16, "served actor, grouped"),
                  ((SEQ_T, 128), 1, torch.float32, "learner seq shape"),
-                 ((37, 96), 1, torch.float32, "odd")]
+                 ((37, 96), 1, torch.float32, "odd"),
+                 # the decode path (prefill of DECODE_B x DECODE_T tokens, a
+                 # decode step of DECODE_B rows): hidden widths and qwen3's
+                 # q/k norms over (rows, heads, 128)
+                 ((DECODE_B * DECODE_T, 2304), 1, torch.bfloat16, "gemma2 prefill"),
+                 ((DECODE_B * DECODE_T, 4096), 1, torch.bfloat16, "qwen3 prefill"),
+                 ((DECODE_B * DECODE_T, 32, 128), 1, torch.bfloat16, "qwen3 prefill q-norm"),
+                 ((DECODE_B * DECODE_T, 8, 128), 1, torch.bfloat16, "qwen3 prefill k-norm"),
+                 ((DECODE_B, 2304), 1, torch.bfloat16, "gemma2 decode step"),
+                 ((DECODE_B, 4096), 1, torch.bfloat16, "qwen3 decode step")]
     for (shape, models, dtype, label) in rms_cases:
         d = shape[-1]
         x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -1661,16 +1978,30 @@ def main() -> int:
          "bf16 mixed, bidirectional, Tq != Tk"),
         (2, 4, 2, 65, 65, 32, torch.float32, False, True, 8, 30.0, 50, S,
          "fp32, window, cap, tail"),
+        # the decode path's prefills: gemma2-2b (head dim 256, softcap 50; its
+        # local layers' window of 4096 covers T = 1024, so both layer kinds
+        # compute this), its sliding prefill (the window bites at T = 4608)
+        # and qwen3-8b (head dim 128, no cap). The gemma2 rows draw q at
+        # GEMMA2_Q_SCALE so that scores reach the cap and the cap changes
+        # the result by more than the tolerance (checked below)
+        (DECODE_B, 8, 4, DECODE_T, DECODE_T, 256, torch.bfloat16, False, True, 0, 50.0, None, S,
+         "gemma2 prefill"),
+        (1, 8, 4, SLIDING_T, SLIDING_T, 256, torch.bfloat16, False, True, 4096, 50.0, None, S,
+         "gemma2 sliding prefill, local"),
+        (DECODE_B, 32, 8, DECODE_T, DECODE_T, 128, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "qwen3 prefill"),
     ]
     for (B, H, KV, Tq, Tk, d, dtype, mixed, causal, window, cap, kv_len, layout,
          label) in flash_cases:
+        qs = GEMMA2_Q_SCALE if label.startswith("gemma2") else 1.0
         if layout == S:
             # the model's layout: (B, T, H, d) activations viewed as (B, H, T, d)
-            q = torch.randn(B, Tq, H, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            q = (qs * torch.randn(B, Tq, H, d, generator=gen, device=dev)).to(dtype) \
+                .transpose(1, 2)
             k = torch.randn(B, Tk, KV, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
             v = torch.randn(B, Tk, KV, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
         else:
-            q = torch.randn(B, H, Tq, d, generator=gen, device=dev).to(dtype)
+            q = (qs * torch.randn(B, H, Tq, d, generator=gen, device=dev)).to(dtype)
             k = torch.randn(B, KV, Tk, d, generator=gen, device=dev).to(dtype)
             v = torch.randn(B, KV, Tk, d, generator=gen, device=dev).to(dtype)
         kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len,
@@ -1686,6 +2017,14 @@ def main() -> int:
         check(err <= tol, f"flash {label}: err {err} > {tol}")
         check(bool(torch.isfinite(o.float()).all()), f"flash {label}: non-finite o")
         check(o.stride() == q.stride(), f"flash {label}: o not in q's layout")
+        err_without_cap = None
+        if qs != 1.0:                         # the kernel without the cap must fail here
+            o0, lse0 = flash_attention_fwd(q, k, v, **{**kw, "cap": 0.0})
+            err_without_cap = max((o0.float() - ro.float()).abs().max().item(),
+                                  (lse0 - rlse).abs().max().item())
+            del o0, lse0
+            check(err_without_cap > tol,
+                  f"flash {label}: the cap moves the result only {err_without_cap} <= {tol}")
         ms = device_ms(lambda: flash_attention_fwd(q, k, v, **kw))
         plain_ms = device_ms(lambda: attention_fwd_ref(q, k, v, **kw))
         library_ms = None
@@ -1697,13 +2036,18 @@ def main() -> int:
                                d ** -0.5, window, cap)
             emit("flex_attention", label=label, **flex_seq)
             library_ms = flex_seq.get("fwd_ms")
+        elif label.startswith("gemma2"):      # a softcap SDPA cannot express
+            flex = flex_ms(q, k, v, None, d ** -0.5, window or Tq, cap)
+            emit("flex_attention", label=label, **flex)
+            library_ms = flex.get("fwd_ms")
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size() \
             + lse.numel() * 4
         flops = 4 * d * B * H * live_pairs(Tq, Tk, causal, window, kv_len)
         b_ms, b_by = bound(nbytes, flops, dname[dtype])
         r = dict(shape=[B, H, KV, Tq, Tk, d], strided=not q.is_contiguous(),
                  dtype=dname[dtype], mixed=mixed, causal=causal, window=window,
-                 cap=cap, kv_len=kv_len, label=label, max_abs_err=err, tol=tol, ms=ms,
+                 cap=cap, kv_len=kv_len, label=label, max_abs_err=err, tol=tol,
+                 q_scale=qs, err_without_cap=err_without_cap, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
         results["flash_attention_fwd"].append(r)
         emit("kernel", name="flash_attention_fwd", **r)
@@ -2157,19 +2501,28 @@ def main() -> int:
                      "reverse_discounted_scan_p"):
             check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
 
-    # -- 11. summary -------------------------------------------------------------
+    # -- 11. decode: prefill and KV-cache decode at full width -----------------
+    launches["decode"], decode_out = decode_phase(dev, counters, smi)
+    for name in ("rmsnorm", "flash_attention_fwd"):
+        check(launches["decode"][name] > 0, f"{name} was never launched on the decode path")
+
+    # -- 12. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
                    "learner seq shape", "GAE, env step", "V-trace, seq step", "actor forward",
-                   "served actor, grouped")
+                   "served actor, grouped", "gemma2 prefill", "gemma2 sliding prefill, local",
+                   "qwen3 prefill", "qwen3 prefill q-norm", "qwen3 prefill k-norm",
+                   "gemma2 decode step", "qwen3 decode step")
     per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
                        "env_step": per_step["env"].get(name, 0),
                        "seq_step": per_step["seq"].get(name, 0),
                        "local_segment": (2 * ACT_T + 1) * per_forward.get(name, 0),
                        "served_segment": (ACT_T + 1) * per_forward.get(name, 0),
                        "runtime_learner_step": runtime_out["runs"]["prefetch"][
-                           "launches_per_learner_step"].get(name, 0)}
+                           "launches_per_learner_step"].get(name, 0),
+                       **{f"{unit}_{arch}": decode_out[arch][f"launches_per_{unit}"].get(name, 0)
+                          for arch in DECODE_STEPS for unit in ("prefill", "step")}}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -2215,6 +2568,9 @@ def main() -> int:
                            round(v["actor_segment_only_frames_per_s"], 1),
                            round(v["learner_steps_per_s"], 2)] for m, v in mp_out.items()},
          fleet=[round(fleet_out["gateway_rows_per_s"]), round(fleet_out["inproc_rows_per_s"])],
+         decode={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
+                     v["consistency"]["float32"], v["card_vs_cpu"]["max_err"]]
+                 for a, v in decode_out.items()},
          seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,9 @@
 """Architecture config system.
 
 Counterpart of `repro.configs.base`, without jax. Every architecture gets
-one `ArchConfig` in `repro_torch/configs/<id>.py` citing its source; the
-port registers an architecture once its family is ported. `smoke()`
-returns the reduced same-family variant used by CPU smoke tests.
+one `ArchConfig` in `repro_torch/configs/<id>.py` citing its source.
+`smoke()` returns the reduced same-family variant used by CPU smoke tests.
+`INPUT_SHAPES` are the assigned input shapes.
 """
 from __future__ import annotations
 
@@ -170,6 +170,25 @@ class ArchConfig:
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, head_size=32, lora_rank=16)
         return replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned): name -> (seq_len, global_batch, kind)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

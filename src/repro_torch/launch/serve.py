@@ -1,5 +1,12 @@
-"""Serving drivers: the replica-fleet gateway (the serving-gateway plane);
-counterpart of `repro.launch.serve`.
+"""Serving entry points: the single-process decode demo and the
+replica-fleet gateway (the serving-gateway plane); counterpart of
+`repro.launch.serve`.
+
+Decode demo (prefill + autoregressive decode for a dense assigned arch;
+`--smoke` runs the reduced variant, `--full` the published widths):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke \
+      --batch 4 --prompt-len 64 --new-tokens 16 [--sliding] [--device cpu]
 
 Standalone replica (one InfServer on the card behind an RpcServer; prints
 `REPLICA host:port` for fleet discovery, serves until killed — the unit
@@ -20,10 +27,9 @@ deadline-tagged traffic demo — the one-command serving-plane smoke):
   PYTHONPATH=src python -m repro_torch.launch.serve --replicas 4 \\
       --arch tleague-policy-s --env rps --demo-rounds 50
 
-Replicas run on `--device` (CUDA by default, raising without a card;
-`--device cpu` runs the plain PyTorch versions). `repro`'s decode demo
-(`serve`: prefill + autoregressive decode) is ROADMAP queue 1 item 9:
-without `--replica`, `--gateway` or `--replicas` this raises.
+The demo and the replicas run on `--device` (CUDA by default, raising
+without a card; `--device cpu` runs the plain PyTorch versions). Without
+`--replica`, `--gateway` or `--replicas` the decode demo runs.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_arch
 
@@ -48,6 +55,70 @@ def _wait_for_signal() -> None:
         except ValueError:                    # pragma: no cover - not main thread
             pass
     done.wait()
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: int = 64,
+          new_tokens: int = 16, sliding: bool = False, temperature: float = 1.0,
+          seed: int = 0, verbose: bool = True, device=None):
+    """The decode demo: seeded params for `arch` (its `smoke()` variant
+    unless smoke=False), a prefill of `batch` random prompts of
+    `prompt_len` tokens, then `new_tokens` decode steps, every row at the
+    same position (`uniform`). sliding=True decodes over the O(window) ring
+    buffer with a `long_context_window` mask. Tokens are greedy at
+    temperature 0, else a categorical draw from a `torch.Generator` on the
+    device (so they differ from `repro`'s). Prints `repro`'s two lines and
+    one JSON line; returns the sampled tokens, a list of (batch, 1)
+    tensors. Timings end in a `torch.cuda.synchronize` on the card."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.rl.distributions import categorical_sample
+    from repro_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.smoke()
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
+    window = cfg.long_context_window if sliding and cfg.family != "ssm" else 0
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = []
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, _, state = prefill(params, cfg, {"tokens": toks}, sliding=sliding)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        tok = logits[:, -1:].argmax(-1)
+        del logits
+        t0 = time.perf_counter()
+        for _ in range(new_tokens):
+            lg, _, state = decode_step(params, cfg, tok, state, window=window, uniform=True)
+            if temperature > 0:
+                tok = categorical_sample(gen, lg[:, -1] / temperature)[:, None]
+            else:
+                tok = lg[:, -1:].argmax(-1)
+            out.append(tok)
+        sync()
+        t_decode = (time.perf_counter() - t0) / max(new_tokens, 1)
+    if verbose:
+        tokens0 = [int(t[0, 0]) for t in out]
+        print(f"[serve] {cfg.name}: prefill({batch}x{prompt_len}) "
+              f"{t_prefill*1e3:.1f}ms; decode {t_decode*1e3:.1f}ms/token "
+              f"(window={window or 'full'})")
+        print("[serve] sampled tokens[0]:", tokens0)
+        print(json.dumps({"arch": cfg.name, "device": str(dev), "batch": batch,
+                          "prompt_len": prompt_len, "new_tokens": new_tokens,
+                          "prefill_ms": 1e3 * t_prefill,
+                          "decode_ms_per_token": 1e3 * t_decode,
+                          "window": window, "tokens0": tokens0}), flush=True)
+    return out
 
 
 def run_replica(*, arch: str = "tleague-policy-s", env_name: str = "rps",
@@ -206,7 +277,17 @@ def serve_fleet(replicas: int, *, arch: str = "tleague-policy-s",
 
 def main():
     ap = argparse.ArgumentParser()
+    # default depends on mode: the decode demo wants a decoder arch, the
+    # replica/fleet modes serve the league policy
     ap.add_argument("--arch", default=None)
+    # decode demo
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--sliding", action="store_true")
+    ap.add_argument("--temperature", type=float, default=1.0)
     # serving-gateway plane
     ap.add_argument("--replica", action="store_true",
                     help="run one standalone InfServer replica (RPC) "
@@ -231,7 +312,7 @@ def main():
     ap.add_argument("--demo-rows", type=int, default=8)
     ap.add_argument("--deadline-ms", type=float, default=250.0)
     ap.add_argument("--device", default=None,
-                    help="torch device of the replicas (default: CUDA, "
+                    help="torch device of the demo or the replicas (default: CUDA, "
                          "raising without a card; 'cpu' runs the plain "
                          "PyTorch versions)")
     args = ap.parse_args()
@@ -253,10 +334,10 @@ def main():
                     demo_rounds=args.demo_rounds, demo_rows=args.demo_rows,
                     deadline_ms=args.deadline_ms, device=args.device)
         return
-    raise NotImplementedError(
-        "the decode demo (repro's launch/serve.py:serve) is ROADMAP queue 1 "
-        "item 9 and is not ported yet; use --replica, --gateway or "
-        "--replicas N")
+    serve(args.arch or "gemma2-2b", smoke=args.smoke, batch=args.batch,
+          prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+          sliding=args.sliding, temperature=args.temperature, seed=args.seed,
+          device=args.device)
 
 
 if __name__ == "__main__":

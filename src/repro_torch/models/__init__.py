@@ -1,1 +1,7 @@
-from repro_torch.models.transformer import forward_train, init_params
+from repro_torch.models.transformer import (
+    decode_step,
+    forward_train,
+    init_decode_state,
+    init_params,
+    prefill,
+)

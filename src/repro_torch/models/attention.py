@@ -1,18 +1,31 @@
-"""GQA attention over a full sequence (counterpart of `repro.models.attention`).
+"""GQA attention: full-sequence and cached decode (counterpart of
+`repro.models.attention`).
 
-Only the kernel route of `repro`'s `chunked_attend` is ported: every call
-goes through `dispatch.attention`, which runs the flash-attention CUDA
-kernel on CUDA tensors and its plain version on CPU tensors. `repro`'s
-chunked CPU fast tier, decode and the ring-buffer KV cache come later.
+Full sequence: only the kernel route of `repro`'s `chunked_attend` is
+ported: every call goes through `dispatch.attention`, which runs the
+flash-attention CUDA kernel on CUDA tensors and its plain version on CPU
+tensors. `repro`'s chunked CPU fast tier is not ported.
+
+Decode: a ring-buffer KV cache (`init_kv_cache`, `decode_attention`), so
+`long_500k` decode holds O(window) state. One query token attends to the
+cache through `_attend`, plain PyTorch on every device. That is no
+fallback: `repro` computes decode attention outside any Pallas kernel too
+(its `decode_attention` calls `_attend` directly, never
+`dispatch.attention`), so there is no TPU kernel to port here.
 
 Model axis: with params stacked on a leading model axis M, activations are
 (M, B, T, d); the projections are batched matmuls and attention folds M
-into the batch, since the models share no keys.
+into the batch, since the models share no keys. Decode has no model axis
+(`repro`'s has none).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
+
+NEG_INF = -2.0 ** 30  # large-negative that survives bf16/softcap fine
 
 
 def init_attention(gen, cfg, dtype):
@@ -55,11 +68,13 @@ def chunked_attend(q, k, v, *, causal, window, cap, scale):
     return o.transpose(1, 2)
 
 
-def full_attention(p, cfg, x, positions, *, layer_type="global"):
+def full_attention(p, cfg, x, positions, *, layer_type="global", return_kv=False):
     """Full-sequence attention. x: (B, T, d) or (M, B, T, d).
 
     layer_type: 'global' (full causal) or 'local' (the config's sliding
-    window). Encoder-only archs are bidirectional."""
+    window). Encoder-only archs are bidirectional. With `return_kv` the
+    result is (y, k, v), k and v (..., T, KV, hd) after RoPE: what
+    `prefill` writes into the decode cache."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     lead = x.shape[:-2]                      # (B,) or (M, B)
     T = x.shape[-2]
@@ -68,4 +83,87 @@ def full_attention(p, cfg, x, positions, *, layer_type="global"):
     o = chunked_attend(fold(q), fold(k), fold(v), causal=not cfg.encoder_only,
                        window=window, cap=cfg.attn_logit_softcap,
                        scale=cfg.head_dim ** -0.5)
-    return L.dense(p["wo"], o.reshape(*lead, T, cfg.q_dim))
+    y = L.dense(p["wo"], o.reshape(*lead, T, cfg.q_dim))
+    return (y, k, v) if return_kv else y
+
+
+def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, k_valid=None):
+    """Plain masked GQA attention, `repro`'s `_attend`. q: (B, Tq, H, hd);
+    k, v: (B, Tk, KV, hd); q_pos (B, Tq), k_pos (B, Tk) -> (B, Tq, H, hd).
+    Scores in q's dtype, then an fp32 softmax; the probabilities are cast
+    to v's dtype before p.V."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Tq, KV, H // KV, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k).float() * scale
+    s = L.softcap(s, cap)
+    qp = q_pos[:, None, None, :, None]
+    kp = k_pos[:, None, None, None, :]
+    mask = torch.ones((B, 1, 1, Tq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window:
+        mask = mask & (qp - kp < window)
+    if k_valid is not None:
+        mask = mask & k_valid[:, None, None, None, :]
+    w = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    o = torch.einsum("bkgts,bskh->btkgh", w.to(v.dtype), v)
+    return o.reshape(B, Tq, H, hd)
+
+
+# -- decode with (ring-buffer) KV cache ---------------------------------------
+
+def init_kv_cache(cfg, batch, cache_len, dtype, prefilled: int = 0, device=None):
+    """Cache of `cache_len` slots. `prefilled` marks how many are valid
+    (dry-run decode shapes prefill the whole cache)."""
+    k = torch.zeros((batch, cache_len, cfg.num_kv_heads, cfg.head_dim), dtype=dtype,
+                    device=device)
+    if prefilled:
+        pos = torch.arange(cache_len, dtype=torch.int32, device=device).expand(
+            batch, cache_len).contiguous()
+        length = torch.full((batch,), prefilled, dtype=torch.int32, device=device)
+    else:
+        pos = torch.full((batch, cache_len), -1, dtype=torch.int32, device=device)
+        length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return {"k": k, "v": torch.zeros_like(k), "pos": pos, "length": length}
+
+
+def decode_attention(p, cfg, x, cache, *, layer_type="global", window_override=0,
+                     uniform=False):
+    """One-token decode. x: (B, 1, d). Returns (y, cache).
+
+    The new k/v is written at slot (length mod cache_len), a ring buffer:
+    with window_override=W and cache_len=W this is O(W) memory at any
+    sequence length (the sub-quadratic long_500k variant).
+
+    Unlike `repro`, which returns a new cache, the write is in place:
+    `cache["k"]`, `["v"]` and `["pos"]` (views into the decode state's
+    stacked tensors) get one slot per row, O(B * KV * hd) bytes, and the
+    returned cache holds the same tensors with `length` advanced.
+    `uniform=True` (every row at the same position, as the serving demo
+    decodes) writes every row at row 0's slot with `index_copy_`;
+    otherwise each row is scattered to its own slot. The slot stays on the
+    device: no host sync."""
+    B, T, _ = x.shape
+    if T != 1:
+        raise ValueError(f"decode_attention takes one token per row, got T={T}")
+    t = cache["length"]                              # (B,) current position
+    q, k, v = _project_qkv(p, cfg, x, t[:, None])
+    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    slot = (t % kc.shape[1]).long()
+    if uniform:
+        s0 = slot[:1]
+        kc.index_copy_(1, s0, k)
+        vc.index_copy_(1, s0, v)
+        pc.index_copy_(1, s0, t[:, None])
+    else:
+        b_idx = torch.arange(B, device=x.device)
+        kc[b_idx, slot] = k[:, 0]
+        vc[b_idx, slot] = v[:, 0]
+        pc[b_idx, slot] = t
+
+    window = window_override or (cfg.sliding_window if layer_type == "local" else 0)
+    o = _attend(q, kc, vc, t[:, None], pc, causal=True, window=window,
+                cap=cfg.attn_logit_softcap, scale=cfg.head_dim ** -0.5, k_valid=pc >= 0)
+    y = L.dense(p["wo"], o.reshape(B, 1, cfg.q_dim))
+    return y, {"k": kc, "v": vc, "pos": pc, "length": t + 1}

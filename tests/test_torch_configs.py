@@ -1,0 +1,41 @@
+"""The port's architecture registry against the JAX package's: the same
+names, every field of every config and of its `smoke()` variant, the same
+input shapes; the families the port does not run yet raise in
+`init_params`."""
+import dataclasses
+
+import pytest
+import torch
+
+from repro.configs import INPUT_SHAPES as JAX_INPUT_SHAPES
+from repro.configs import get_arch as jax_arch
+from repro.configs import list_archs as jax_list_archs
+from repro_torch.configs import INPUT_SHAPES, get_arch, list_archs
+from repro_torch.models import init_params
+
+NOT_DENSE = ["pixtral-12b", "rwkv6-3b", "hubert-xlarge", "kimi-k2-1t-a32b",
+             "qwen3-moe-235b-a22b", "hymba-1.5b"]
+
+
+def test_registry_names_match_repro():
+    assert list_archs() == jax_list_archs()
+
+
+@pytest.mark.parametrize("arch", jax_list_archs())
+def test_config_and_smoke_match_repro(arch):
+    for ours, theirs in ((get_arch(arch), jax_arch(arch)),
+                         (get_arch(arch).smoke(), jax_arch(arch).smoke())):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert (ours.q_dim, ours.kv_dim, ours.param_count(), ours.active_param_count()) == (
+            theirs.q_dim, theirs.kv_dim, theirs.param_count(), theirs.active_param_count())
+
+
+def test_input_shapes_match_repro():
+    assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in JAX_INPUT_SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", NOT_DENSE)
+def test_init_params_raises_for_families_not_ported(arch):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_params(torch.Generator().manual_seed(0), get_arch(arch).smoke())

@@ -117,7 +117,7 @@ def test_cli_without_device_raises_without_a_card():
     assert not any(ln.startswith("{") for ln in r.stdout.splitlines())
 
 
-def test_sharded_and_decode_demo_raise_not_implemented():
+def test_sharded_raises_not_implemented():
     from repro_torch.launch import distributed as dist
     from repro_torch.league import LeagueSpec
 
@@ -128,9 +128,23 @@ def test_sharded_and_decode_demo_raise_not_implemented():
                  lambda: dist.run_infserver("127.0.0.1:1", sharded=True, device="cpu")):
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"], env=_env(),
-                       capture_output=True, text=True, timeout=180)
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr and "item 9" in r.stderr
+
+
+def test_decode_demo_runs_on_cpu():
+    """`launch.serve` without a mode runs the decode demo: prefill, then
+    greedy decode steps, `repro`'s two lines and one JSON line."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma2-2b",
+                        "--smoke", "--device", "cpu", "--new-tokens", "4", "--temperature", "0"],
+                       env=_env(), capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("[serve] gemma2-2b-smoke: prefill(4x64)")
+    assert lines[1].startswith("[serve] sampled tokens[0]:")
+    out = json.loads(lines[-1])
+    assert out["arch"] == "gemma2-2b-smoke" and out["device"] == "cpu"
+    assert out["new_tokens"] == 4 and len(out["tokens0"]) == 4 and out["window"] == 0
+    assert out["prefill_ms"] > 0 and out["decode_ms_per_token"] > 0
+    assert all(0 <= t < 512 for t in out["tokens0"])
 
 
 def test_role_params_seed_every_mode_alike():
