@@ -70,7 +70,17 @@ drives the port's paths on the card:
   and per step, the flash forward 26 / 36 per prefill and none per step),
   a step with no host sync, decode against forward_train at fp32, gemma2's
   sliding ring (a 4608-token prompt) and long_500k state, the InfServer
-  over the gemma2 backbone, and one repeat unit card vs CPU.
+  over the gemma2 backbone, and one repeat unit card vs CPU;
+- families: the moe, ssm, hybrid and vlm families at full width, one arch
+  at a time: qwen3-moe-235b-a22b (4 of 94 layers), kimi-k2-1t-a32b (its
+  dense prefix and 1 MoE layer of 61), rwkv6-3b, hymba-1.5b and
+  pixtral-12b (full depth; the decode demo for these three), prefill of
+  4 x 1024 tokens (pixtral's after 1024 patch embeddings; rwkv6's and
+  hymba's cut to 4 x 256: their scans are loops over time) and greedy
+  decode steps with exactly their launches, a step with no host sync (MoE
+  routing included), the MoE choices dropped at prefill, long_500k steps
+  for hymba (its ring) and rwkv6 (its O(1) state), decode against
+  forward_train, and one unit card vs CPU with equal routing slots.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -85,6 +95,7 @@ Imports neither jax nor the JAX package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -146,6 +157,30 @@ SLIDING_T, SLIDING_STEPS = 4608, 16            # past gemma2's 4096 window
 LONG_STEPS = 16                                # long_500k: O(window) state
 DECODE_CPU_B, DECODE_CPU_T, DECODE_CPU_STEPS = 2, 80, 4
 CONSISTENCY_TOL = 1e-3                         # of max(1, max |logits|)
+# the families phase: qwen3-moe-235b-a22b, kimi-k2-1t-a32b (depth cut to
+# fit the card: 4 of 94 layers; the dense prefix and 1 MoE layer of 61),
+# rwkv6-3b, hymba-1.5b and pixtral-12b at full depth; full width, seeded,
+# the configs' own dtypes; DECODE_B prompts of DECODE_T tokens (pixtral's
+# after PATCHES patch embeddings; FAMILY_PROMPT's for rwkv6 and hymba),
+# FAMILY_STEPS greedy steps
+FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "kimi-k2-1t-a32b": 2, "rwkv6-3b": None,
+                "hymba-1.5b": None, "pixtral-12b": None}
+PATCHES = 1024                                 # configs/pixtral_12b.py NUM_PATCHES
+# rwkv6's and hymba's prompts are cut to 256 tokens: their scans are
+# Python loops over time (~5 eager ops per token per layer), so a 4 x 1024
+# prefill takes seconds and the phase minutes
+FAMILY_PROMPT = {"rwkv6-3b": 256, "hymba-1.5b": 256}
+FAMILY_STEPS = 16
+# decode vs forward_train for the MoE archs: a prompt short enough that no
+# choice is dropped (capacity grows with the token count, so both runs
+# must drop none). The capacity is at least top-k (8) and an expert takes
+# at most one choice per token, so up to 8 tokens a run cannot drop; at
+# 2 x 16 the seeded qwen3-moe routes unevenly enough to drop choices.
+# kimi-k2's at bf16 compute (fp32 would copy its 33.8 GB of experts to
+# fp32), within BF16_CONSISTENCY_TOL
+MOE_CONS_B, MOE_CONS_T = 1, 7
+BF16_CONSISTENCY_TOL = 2e-2
+STATE_TOL = 1e-5                               # card vs CPU, recurrent and cache states
 # q is drawn at this scale in the gemma2 flash rows: scores of std ~8 reach
 # the softcap of 50, so dropping the cap moves o and lse past the tolerance
 GEMMA2_Q_SCALE = 8.0
@@ -1493,6 +1528,36 @@ def norms_per_pass(cfg):
     return (2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm) * cfg.num_layers + 1
 
 
+def counted_run(counters, total, fn, want, what):
+    """fn() with the launch counts set to 0 just before and read just
+    after: they must equal `want` exactly; they are added to `total`."""
+    zero(counters)
+    res = fn()
+    got = read(counters)
+    for k in got:
+        total[k] += got[k]
+    check(got == {k: want.get(k, 0) for k in got}, f"{what}: launches {got}, want {want}")
+    check_on_card(what)
+    return res
+
+
+def finite(*ts):
+    return all(bool(t.float().isfinite().all()) for t in ts)
+
+
+def ring(state):
+    """(min, max) position held in the first layer's cache."""
+    pos = state["blocks"]["kv0"]["pos"]
+    return int(pos.min()), int(pos.max())
+
+
+def held(state):
+    """The distinct counts of valid slots (pos >= 0) over every layer's
+    cache and every row."""
+    return sorted({n for c in state["blocks"].values() if isinstance(c, dict)
+                   for n in (c["pos"] >= 0).sum(-1).flatten().tolist()})
+
+
 def decode_phase(dev, counters, smi):
     """The dense family's serving path (prefill, the ring-buffer KV cache,
     decode_step) on gemma2-2b and qwen3-8b at full width and depth, bf16
@@ -1531,31 +1596,7 @@ def decode_phase(dev, counters, smi):
     total = dict.fromkeys(names, 0)
     out = {}
 
-    def counted(fn, want, what):
-        """fn() with the launch counts set to 0 just before and read just
-        after: they must equal `want` exactly."""
-        zero(counters)
-        res = fn()
-        got = read(counters)
-        for k in names:
-            total[k] += got[k]
-        check(got == {k: want.get(k, 0) for k in names}, f"{what}: launches {got}, want {want}")
-        check_on_card(what)
-        return res
-
-    def finite(*ts):
-        return all(bool(torch.isfinite(t.float()).all()) for t in ts)
-
-    def ring(state):
-        """(min, max) position held in the first layer's cache."""
-        pos = state["blocks"]["kv0"]["pos"]
-        return int(pos.min()), int(pos.max())
-
-    def held(state):
-        """The distinct counts of valid slots (pos >= 0) over every layer's
-        cache and every row."""
-        return sorted({n for c in state["blocks"].values()
-                       for n in (c["pos"] >= 0).sum(-1).flatten().tolist()})
+    counted = lambda fn, want, what: counted_run(counters, total, fn, want, what)
 
     for arch, steps in DECODE_STEPS.items():
         t_arch = time.perf_counter()
@@ -1764,6 +1805,303 @@ def decode_phase(dev, counters, smi):
     return total, out
 
 
+@contextlib.contextmanager
+def moe_routes():
+    """Every `route_topk` call of the port's MoE inside the block, recorded
+    as (slot, keep) device tensors: no host sync, no device op."""
+    from repro_torch.models import moe
+    orig, calls = moe.route_topk, []
+
+    def route(gates, k, capacity):
+        res = orig(gates, k, capacity)
+        calls.append((res[0], res[2]))
+        return res
+    moe.route_topk = route
+    try:
+        yield calls
+    finally:
+        moe.route_topk = orig
+
+
+def dropped(calls):
+    """Expert choices sent to the drop bucket over the recorded routes."""
+    return sum(int((~keep).sum()) for _, keep in calls)
+
+
+def family_norms(cfg):
+    """RMSNorm launches per prefill or decode step: `norms_per_pass` plus
+    the hybrid's two output norms per layer; none for rwkv6, whose norms
+    are all LayerNorms (plain PyTorch, as in `repro`)."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    return norms_per_pass(cfg) + 2 * cfg.num_layers * (cfg.family == "hybrid")
+
+
+def families_phase(dev, counters, smi):
+    """The moe, ssm, hybrid and vlm families' serving path at full width,
+    one arch at a time (FAMILY_DEPTH cuts the MoE archs' depth to fit the
+    card), memory freed between archs. Per arch:
+
+    - rwkv6, hymba and pixtral (full depth): the decode demo
+      (`launch.serve.serve`, token prompts as `repro`'s demo) with exactly
+      its launches;
+    - DECODE_PREFILLS timed prefills of DECODE_B x DECODE_T tokens
+      (pixtral after PATCHES seeded patch embeddings; rwkv6 and hymba at
+      FAMILY_PROMPT tokens) and FAMILY_STEPS
+      greedy uniform steps, a uniform=False step and one step under
+      `set_sync_debug_mode("error")` (MoE routing and the recurrent
+      states included), each with exactly its launches (RMSNorm
+      `family_norms`, the flash forward once per attention layer per
+      prefill and never in a step); the MoE choices dropped at prefill; a
+      step and a prefill profiled; the cache's valid slots per layer and
+      row;
+    - hymba: the long_500k shape over its 1024-slot ring; rwkv6: steps at
+      length 524,288 (its state is O(1));
+    - decode(T | prefill) against forward_train at position T at fp32
+      compute within CONSISTENCY_TOL of max(1, max |logits|); for the MoE
+      archs on a MOE_CONS_B x MOE_CONS_T prompt at which both runs drop no
+      choice (asserted), kimi-k2's at bf16 compute within
+      BF16_CONSISTENCY_TOL; for the recurrent archs (rwkv6, hymba) the
+      states after position T, by prefill + step and by one prefill over
+      T + 1 tokens, compared layer by layer (the first layer within
+      STATE_TOL: both routes feed it the same embeddings);
+    - card vs CPU at fp32 compute: one unit (kimi-k2's: one dense layer at
+      its widths, a `blocks` stack with moe=None, since its MoE unit would
+      need a 67.6 GB fp32 copy of its experts), a
+      prefill of DECODE_CPU_T tokens (pixtral after 16 patches) and
+      DECODE_CPU_STEPS steps: the routing slots equal, logits and values
+      within CARD_VS_CPU_TOL and every state leaf within STATE_TOL of
+      max(1, max |cpu|), positions and lengths equal."""
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (decode_step, forward_train, init_decode_state, init_params,
+                                    prefill)
+    from repro_torch.utils import tree_flatten_with_path, tree_map
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    names = [c.__name__ for c in counters]
+    total = dict.fromkeys(names, 0)
+    counted = lambda fn, want, what: counted_run(counters, total, fn, want, what)
+    out = {}
+    for arch, depth in FAMILY_DEPTH.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        L, attn = cfg.num_layers, cfg.family != "ssm"
+        prompt = FAMILY_PROMPT.get(arch, DECODE_T)
+        per_prefill = {"rmsnorm": family_norms(cfg), "flash_attention_fwd": L * attn}
+        per_step = {"rmsnorm": family_norms(cfg)}
+        rec = {"layers": L, "published_layers": get_arch(arch).num_layers,
+               "launches_per_prefill": per_prefill, "launches_per_step": per_step}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        if depth is None:                     # the user's entry point, at full depth
+            demo = counted(lambda: serve(arch, smoke=False, batch=DECODE_B, prompt_len=prompt,
+                                         new_tokens=FAMILY_STEPS, temperature=0.0, device=dev),
+                           {k: per_prefill.get(k, 0) + FAMILY_STEPS * per_step.get(k, 0)
+                            for k in names}, f"{arch} serve demo")
+            check(len(demo) == FAMILY_STEPS and all(t.shape == (DECODE_B, 1) for t in demo),
+                  f"{arch} serve demo: tokens")
+            del demo
+
+        with torch.inference_mode():
+            params = init_params(torch.Generator(device=dev).manual_seed(11), cfg)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (DECODE_B, prompt))).to(dev)
+            batch = {"tokens": toks}
+            if cfg.family == "vlm":
+                batch["patch_embeds"] = torch.randn(
+                    DECODE_B, PATCHES, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(14))
+            T = prompt + (PATCHES if cfg.family == "vlm" else 0)
+
+            prefill_ms = []                   # one warm-up, then DECODE_PREFILLS timed
+            for i in range(1 + DECODE_PREFILLS):
+                with moe_routes() as routes:
+                    ms, (logits, values, state) = counted(
+                        lambda: sync_wall(lambda: prefill(params, cfg, batch)), per_prefill,
+                        f"{arch} prefill")
+                check(logits.shape == (DECODE_B, T, cfg.vocab_size)
+                      and finite(logits[:, -1], values), f"{arch} prefill: outputs")
+                prefill_ms += [ms] if i else []
+            if cfg.moe:
+                rec["moe_dropped_at_prefill"] = dropped(routes)
+                rec["moe_choices_at_prefill"] = (DECODE_B * T * cfg.moe.experts_per_token
+                                                 * len(routes))
+            tok = first_tok = logits[:, -1:].argmax(-1)
+            del logits, values, routes
+            if attn:
+                check(tuple(state["blocks"]["kv0"]["k"].shape[1:3]) == (DECODE_B, T + 64)
+                      and ring(state) == (-1, T - 1) and held(state) == [T],
+                      f"{arch} prefill: the whole prompt in the cache, {ring(state)}, "
+                      f"{held(state)}")
+            check(int(state["length"][0]) == T and all(
+                finite(a) for _, a in tree_flatten_with_path(state)[0] if a.is_floating_point()),
+                f"{arch} prefill: state")
+
+            def step(uniform=True, window=0):
+                nonlocal tok, state
+                lg, v, state = decode_step(params, cfg, tok, state, window=window,
+                                           uniform=uniform)
+                tok = lg[:, -1:].argmax(-1)
+                return lg, v
+
+            step_ms = []
+            for i in range(FAMILY_STEPS):
+                ms, (lg, v) = counted(lambda: sync_wall(step), per_step, f"{arch} decode step")
+                check(lg.shape == (DECODE_B, 1, cfg.vocab_size) and finite(lg, v),
+                      f"{arch} decode step {i}: outputs")
+                step_ms.append(ms)
+            lg, v = counted(lambda: step(uniform=False), per_step, f"{arch} uniform=False step")
+            check(finite(lg, v), f"{arch} uniform=False step: outputs")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                counted(step, per_step, f"{arch} decode step under sync debug")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            n = T + FAMILY_STEPS + 2
+            check(int(state["length"][0]) == n
+                  and (not attn or (ring(state) == (-1, n - 1) and held(state) == [n])),
+                  f"{arch}: state after {FAMILY_STEPS + 2} steps")
+            zero(counters)
+            rec["profile_decode_step"] = profiled(step, 3)
+            rec["profile_prefill"] = profiled(lambda: prefill(params, cfg, batch), 1)
+            for k, c in read(counters).items():
+                total[k] += c
+            check_on_card(f"{arch} profiled")
+            del state
+
+            if arch in ("hymba-1.5b", "rwkv6-3b"):
+                # long_500k: hymba over its ring of long_context_window
+                # slots, rwkv6 over its O(1) state
+                shape = INPUT_SHAPES["long_500k"]
+                W = cfg.long_context_window if attn else 0
+                state = init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                          sliding=attn, device=dev)
+                tok = torch.zeros((shape.global_batch, 1), dtype=torch.long, device=dev)
+                lms = []
+                for _ in range(LONG_STEPS):
+                    ms, (lg, v) = counted(lambda: sync_wall(lambda: step(window=W)), per_step,
+                                          f"{arch} long_500k step")
+                    check(finite(lg, v), f"{arch} long_500k step: outputs")
+                    lms.append(ms)
+                n = shape.seq_len + LONG_STEPS
+                check(int(state["length"][0]) == n
+                      and (not attn or (state["blocks"]["kv0"]["k"].shape[2] == W
+                                        and ring(state)[1] == n - 1 and held(state) == [W])),
+                      f"{arch} long_500k: state after {LONG_STEPS} steps")
+                rec["long_500k"] = {
+                    "seq_len": shape.seq_len, "ring": W or None,
+                    "decode_ms_median": statistics.median(lms),
+                    "state_mb": sum(a.numel() * a.element_size()
+                                    for _, a in tree_flatten_with_path(state)[0]) / 2 ** 20}
+                del state
+            rec.update(prefill_ms_median=statistics.median(prefill_ms),
+                       prefill_ms_each=[round(x, 3) for x in prefill_ms],
+                       decode_ms_median=statistics.median(step_ms),
+                       decode_ms_each=[round(x, 3) for x in step_ms],
+                       peak_cuda_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+
+            # decode against forward_train at position T
+            kimi = arch == "kimi-k2-1t-a32b"
+            ccfg = cfg if kimi else dataclasses.replace(cfg, compute_dtype="float32")
+            if cfg.moe:
+                ctoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                      (MOE_CONS_B, MOE_CONS_T + 1))).to(dev)
+                short, full, last, pos = ({"tokens": ctoks[:, :-1]}, {"tokens": ctoks},
+                                          ctoks[:, -1:], MOE_CONS_T)
+            else:
+                short, full, last, pos = (batch, {**batch, "tokens": torch.cat([toks, first_tok], 1)},
+                                          first_tok, T)
+            with moe_routes() as routes:
+                pl, _, st = prefill(params, ccfg, short)
+                del pl
+                d, dv, st = decode_step(params, ccfg, last, st)
+                f, fv, _ = forward_train(params, ccfg, full)
+            drops = dropped(routes)
+            check(drops == 0, f"{arch}: decode vs forward_train dropped {drops} choices")
+            err = max(rel_err(d[:, 0], f[:, pos]), rel_err(dv[:, 0], fv[:, pos]))
+            del f, fv, routes
+            tol = BF16_CONSISTENCY_TOL if kimi else CONSISTENCY_TOL
+            check(err <= tol, f"{arch}: decode vs forward_train at {ccfg.compute_dtype} "
+                              f"{err} > {tol}")
+            rec["consistency"] = {"compute_dtype": ccfg.compute_dtype, "err": err, "tol": tol,
+                                  "prompt": [d.shape[0], pos], "moe_dropped": drops}
+            if cfg.family in ("ssm", "hybrid"):
+                _, _, sf = prefill(params, ccfg, full)
+                keys = [k for k, c in st["blocks"].items() if not isinstance(c, dict)]
+                by_layer = [max(rel_err(st["blocks"][k][r], sf["blocks"][k][r]) for k in keys)
+                            for r in range(st["blocks"][keys[0]].shape[0])]
+                check(by_layer[0] <= STATE_TOL,
+                      f"{arch}: first layer's states, prefill + step vs prefill over T + 1: "
+                      f"{by_layer[0]} > {STATE_TOL}")
+                rec["consistency"]["state_err_by_layer"] = by_layer
+                del sf
+            del st, params
+        torch.cuda.empty_cache()
+
+        # card vs CPU: one unit at full width, fp32 compute
+        cfg1 = dataclasses.replace(cfg, num_layers=1, compute_dtype="float32",
+                                   **({"moe": None} if kimi else {}))
+        ctoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (DECODE_CPU_B, DECODE_CPU_T + DECODE_CPU_STEPS)))
+        cpatch = torch.from_numpy(rng.normal(size=(DECODE_CPU_B, 16, cfg.d_model))
+                                  .astype(np.float32))
+
+        def run(p, d):
+            b = {"tokens": ctoks[:, :DECODE_CPU_T].to(d)}
+            if cfg.family == "vlm":
+                b["patch_embeds"] = cpatch.to(d)
+            with moe_routes() as routes:
+                lg, v, st = prefill(p, cfg1, b)
+                outs = [lg, v]
+                for i in range(DECODE_CPU_T, DECODE_CPU_T + DECODE_CPU_STEPS):
+                    lg, v, st = decode_step(p, cfg1, ctoks[:, i:i + 1].to(d), st,
+                                            uniform=i % 2 == 0)
+                    outs += [lg, v]
+            return outs, st, [s.cpu() for s, _ in routes]
+
+        with torch.inference_mode():
+            p_dev = init_params(torch.Generator(device=dev).manual_seed(12), cfg1)
+            o_cpu, s_cpu, r_cpu = run(tree_map(lambda a: a.cpu(), p_dev), torch.device("cpu"))
+            zero(counters)
+            o_dev, s_dev, r_dev = run(p_dev, dev)
+            for k, c in read(counters).items():
+                total[k] += c
+            check_on_card(f"{arch} card vs CPU")
+            errs = {"logits_values": max(rel_err(a.cpu(), b) for a, b in zip(o_dev, o_cpu))}
+            leaves = list(zip(tree_flatten_with_path(s_dev)[0], tree_flatten_with_path(s_cpu)[0]))
+            errs["state"] = max(rel_err(a.cpu(), b) for (_, a), (_, b) in leaves
+                                if a.is_floating_point())
+            check(all(torch.equal(a.cpu(), b) for (_, a), (_, b) in leaves
+                      if not a.is_floating_point()), f"{arch} card vs CPU: positions differ")
+            check(len(r_dev) == len(r_cpu) and all(torch.equal(a, b) for a, b in zip(r_dev, r_cpu)),
+                  f"{arch} card vs CPU: routing slots differ")
+            for what, e, t in (("logits_values", errs["logits_values"], CARD_VS_CPU_TOL),
+                               ("state", errs["state"], STATE_TOL)):
+                check(e <= t, f"{arch} card vs CPU ({what}): {e} > {t}")
+            rec["card_vs_cpu"] = {"unit": ("one dense layer (blocks, moe=None)" if kimi
+                                           else "one layer"),
+                                  "batch": DECODE_CPU_B, "prompt": DECODE_CPU_T,
+                                  "steps": DECODE_CPU_STEPS, "routes_equal": len(r_dev),
+                                  "max_err": errs,
+                                  "tol": {"logits_values": CARD_VS_CPU_TOL, "state": STATE_TOL}}
+            del p_dev, s_dev, o_dev
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
+        out[arch] = rec
+        emit("families", card=smi, arch=arch, family=cfg.family,
+             compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype, batch=DECODE_B,
+             prompt=T, steps=FAMILY_STEPS, **rec)
+    emit("families_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total)
+    return total, out
+
+
 def main() -> int:
     import torch
 
@@ -1864,13 +2202,14 @@ def main() -> int:
 
             def score_mod(score, b, h, qi, ki):
                 return cap * torch.tanh(score / cap)
+            cap_mod = {"score_mod": score_mod} if cap else {}
 
             T = q.shape[2]
             block_mask = create_block_mask(mask_mod, None, None, T, T, device=q.device)
             # static shapes: a second shape would otherwise recompile with
             # dynamic ones, which fails to lower
             flex = torch.compile(flex_attention, dynamic=False)
-            run = lambda *a: flex(*a, score_mod=score_mod, block_mask=block_mask, scale=scale,
+            run = lambda *a: flex(*a, **cap_mod, block_mask=block_mask, scale=scale,
                                   enable_gqa=True)
             leaves = [t.detach().requires_grad_(do is not None) for t in (q, k, v)]
             out = run(*leaves)
@@ -1911,7 +2250,20 @@ def main() -> int:
                  ((DECODE_B * DECODE_T, 32, 128), 1, torch.bfloat16, "qwen3 prefill q-norm"),
                  ((DECODE_B * DECODE_T, 8, 128), 1, torch.bfloat16, "qwen3 prefill k-norm"),
                  ((DECODE_B, 2304), 1, torch.bfloat16, "gemma2 decode step"),
-                 ((DECODE_B, 4096), 1, torch.bfloat16, "qwen3 decode step")]
+                 ((DECODE_B, 4096), 1, torch.bfloat16, "qwen3 decode step"),
+                 # the families phase: qwen3-moe's q/k norms (its hidden
+                 # width, 4096, is the qwen3 rows'), kimi-k2's, hymba's and
+                 # pixtral's hidden widths at prefill (pixtral's rows count
+                 # its patch prefix) and at a decode step
+                 ((DECODE_B * DECODE_T, 64, 128), 1, torch.bfloat16, "qwen3-moe prefill q-norm"),
+                 ((DECODE_B * DECODE_T, 4, 128), 1, torch.bfloat16, "qwen3-moe prefill k-norm"),
+                 ((DECODE_B * DECODE_T, 7168), 1, torch.bfloat16, "kimi-k2 prefill"),
+                 ((DECODE_B * FAMILY_PROMPT["hymba-1.5b"], 1600), 1, torch.bfloat16,
+                  "hymba prefill"),
+                 ((DECODE_B * (PATCHES + DECODE_T), 5120), 1, torch.bfloat16, "pixtral prefill"),
+                 ((DECODE_B, 7168), 1, torch.bfloat16, "kimi-k2 decode step"),
+                 ((DECODE_B, 1600), 1, torch.bfloat16, "hymba decode step"),
+                 ((DECODE_B, 5120), 1, torch.bfloat16, "pixtral decode step")]
     for (shape, models, dtype, label) in rms_cases:
         d = shape[-1]
         x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -1990,6 +2342,17 @@ def main() -> int:
          "gemma2 sliding prefill, local"),
         (DECODE_B, 32, 8, DECODE_T, DECODE_T, 128, torch.bfloat16, False, True, 0, 0.0, None, S,
          "qwen3 prefill"),
+        # the families phase's prefills: G = 16 (qwen3-moe), 8 (kimi-k2), 5
+        # (hymba, every layer windowed at 1024) and pixtral's patch prefix
+        # + tokens
+        (DECODE_B, 64, 4, DECODE_T, DECODE_T, 128, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "qwen3-moe prefill"),
+        (DECODE_B, 64, 8, DECODE_T, DECODE_T, 128, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "kimi-k2 prefill"),
+        (DECODE_B, 25, 5, FAMILY_PROMPT["hymba-1.5b"], FAMILY_PROMPT["hymba-1.5b"], 64,
+         torch.bfloat16, False, True, 1024, 0.0, None, S, "hymba prefill"),
+        (DECODE_B, 32, 8, PATCHES + DECODE_T, PATCHES + DECODE_T, 128, torch.bfloat16, False,
+         True, 0, 0.0, None, S, "pixtral prefill"),
     ]
     for (B, H, KV, Tq, Tk, d, dtype, mixed, causal, window, cap, kv_len, layout,
          label) in flash_cases:
@@ -2036,7 +2399,7 @@ def main() -> int:
                                d ** -0.5, window, cap)
             emit("flex_attention", label=label, **flex_seq)
             library_ms = flex_seq.get("fwd_ms")
-        elif label.startswith("gemma2"):      # a softcap SDPA cannot express
+        elif label.startswith(("gemma2", "hymba")):  # a softcap or window SDPA cannot express
             flex = flex_ms(q, k, v, None, d ** -0.5, window or Tq, cap)
             emit("flex_attention", label=label, **flex)
             library_ms = flex.get("fwd_ms")
@@ -2506,14 +2869,22 @@ def main() -> int:
     for name in ("rmsnorm", "flash_attention_fwd"):
         check(launches["decode"][name] > 0, f"{name} was never launched on the decode path")
 
-    # -- 12. summary -------------------------------------------------------------
+    # -- 12. the moe, ssm, hybrid and vlm families at full width -------------
+    launches["families"], families_out = families_phase(dev, counters, smi)
+    for name in ("rmsnorm", "flash_attention_fwd"):
+        check(launches["families"][name] > 0, f"{name} was never launched on the families path")
+
+    # -- 13. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
                    "learner seq shape", "GAE, env step", "V-trace, seq step", "actor forward",
                    "served actor, grouped", "gemma2 prefill", "gemma2 sliding prefill, local",
                    "qwen3 prefill", "qwen3 prefill q-norm", "qwen3 prefill k-norm",
-                   "gemma2 decode step", "qwen3 decode step")
+                   "gemma2 decode step", "qwen3 decode step", "qwen3-moe prefill q-norm",
+                   "qwen3-moe prefill k-norm", "kimi-k2 prefill", "hymba prefill",
+                   "pixtral prefill", "kimi-k2 decode step", "hymba decode step",
+                   "pixtral decode step", "qwen3-moe prefill")
     per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
                        "env_step": per_step["env"].get(name, 0),
                        "seq_step": per_step["seq"].get(name, 0),
@@ -2521,8 +2892,9 @@ def main() -> int:
                        "served_segment": (ACT_T + 1) * per_forward.get(name, 0),
                        "runtime_learner_step": runtime_out["runs"]["prefetch"][
                            "launches_per_learner_step"].get(name, 0),
-                       **{f"{unit}_{arch}": decode_out[arch][f"launches_per_{unit}"].get(name, 0)
-                          for arch in DECODE_STEPS for unit in ("prefill", "step")}}
+                       **{f"{unit}_{arch}": rec[f"launches_per_{unit}"].get(name, 0)
+                          for arch, rec in {**decode_out, **families_out}.items()
+                          for unit in ("prefill", "step")}}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -2571,6 +2943,9 @@ def main() -> int:
          decode={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
                      v["consistency"]["float32"], v["card_vs_cpu"]["max_err"]]
                  for a, v in decode_out.items()},
+         families={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
+                       v["consistency"]["err"], v["card_vs_cpu"]["max_err"]]
+                   for a, v in families_out.items()},
          seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,7 +28,7 @@ def _normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
     """scale * N(0, 1) truncated to +-2 sigma (as jax.random.truncated_normal)."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (scale * t).to(dtype)
+    return t.mul_(scale).to(dtype)     # in place: one fp32 temporary at expert scale
 
 
 def dense_init(gen, d_in, d_out, dtype, bias=False, scale=None):

@@ -1,13 +1,19 @@
-"""Transformer assembly, dense family (counterpart of `repro.models.transformer`).
+"""Transformer assembly for the assigned arch families (counterpart of
+`repro.models.transformer`): dense, moe, ssm (rwkv6), hybrid (attention
+and Mamba heads in parallel) and vlm (a dense decoder over a prefix of
+patch embeddings). The audio family (hubert, head dim 80) comes in slice
+11 and raises here.
 
 Params keep the reference layout: the layer stack `blocks` is stacked on a
-leading repeat axis (one entry per repeat of `cfg.layer_pattern`), and a
-Python loop over that axis replaces `lax.scan`.
+leading repeat axis (one entry per repeat of `cfg.layer_pattern`), and
+kimi-k2's leading dense layers are a second stack, `dense_prefix`, run
+first. A Python loop over each stack replaces `lax.scan`.
 
-Model axis: every function here also takes params stacked on a leading
-model axis M (leaves (M, ...), blocks (M, R, ...)) together with tokens
-(M, B, T); outputs then carry the same leading M. This is the grouped
-theta + phi forward of the InfServer, written without `vmap`.
+Model axis (dense family only): every function here also takes params
+stacked on a leading model axis M (leaves (M, ...), blocks (M, R, ...))
+together with tokens (M, B, T); outputs then carry the same leading M.
+This is the grouped theta + phi forward of the InfServer, written without
+`vmap`.
 
 Entry points (the learner / InfServer steps of the TLeague mapping):
   forward_train(params, cfg, batch, remat=False) -> (logits, values, aux),
@@ -15,11 +21,12 @@ Entry points (the learner / InfServer steps of the TLeague mapping):
   prefill(params, cfg, batch)               -> (logits, values, state);
   decode_step(params, cfg, tokens, state)   -> (logits, values, state);
   init_decode_state(cfg, batch, seq_len)    -> state.
-The decode state keeps `repro`'s layout: `blocks` holds one cache dict per
-sublayer (`kv{j}`: k, v, pos, length), each leaf stacked on the leading
-repeat axis, and `length` (B,) is the next absolute position. Decode has
-no model axis (`repro`'s has none). The other families (MoE, SSM, hybrid,
-vlm, audio) come later: their configs raise in `init_params`.
+`batch` holds `tokens` (B, T) and/or `patch_embeds` (B, P, d), which go
+first. The decode state keeps `repro`'s layout: `blocks` (and
+`dense_prefix`) hold one cache dict per sublayer (`kv{j}`: k, v, pos,
+length; hybrid `conv{j}`, `ssm{j}`; rwkv `tm_prev`, `tm_S`, `cm_prev`),
+each leaf stacked on the leading repeat axis, and `length` (B,) is the
+next absolute position. Decode has no model axis (`repro`'s has none).
 """
 from __future__ import annotations
 
@@ -31,14 +38,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, tree_map, tree_stack
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
+
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+GROUPS = ("dense_prefix", "blocks")        # the order the stacks run in
 
 
 # ===========================================================================
 # init
 # ===========================================================================
 
-def _init_dense_unit(gen, cfg, dtype):
+def _init_dense_unit(gen, cfg, dtype, with_moe: bool):
     """One repeat unit of attention-bearing sublayers."""
     dev = gen.device
     subs = {}
@@ -47,9 +59,16 @@ def _init_dense_unit(gen, cfg, dtype):
             "attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, dev),
             "attn": A.init_attention(gen, cfg, dtype),
             "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, dev),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
-                              gated=cfg.mlp_gated),
         }
+        if cfg.family == "hybrid":
+            sub["mamba"] = S.init_mamba(gen, cfg, dtype)
+            sub["attn_out_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, dev)
+            sub["ssm_out_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, dev)
+            sub["fuse_beta"] = torch.ones((2,), dtype=dtype, device=dev)
+        if with_moe:
+            sub["moe"] = M.init_moe(gen, cfg, dtype)
+        else:
+            sub["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.mlp_gated)
         if cfg.post_block_norms:
             sub["post_attn_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, dev)
             sub["post_mlp_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, dev)
@@ -57,30 +76,63 @@ def _init_dense_unit(gen, cfg, dtype):
     return subs
 
 
+def _init_rwkv_unit(gen, cfg, dtype):
+    dev = gen.device
+    return {"sub0": {
+        "tm_norm": L.layernorm_init(cfg.d_model, dtype, dev),
+        "time_mix": S.init_rwkv_time_mix(gen, cfg, dtype),
+        "cm_norm": L.layernorm_init(cfg.d_model, dtype, dev),
+        "channel_mix": S.init_rwkv_channel_mix(gen, cfg, dtype),
+    }}
+
+
 def _n_repeats(cfg):
     n_unit = len(cfg.layer_pattern)
-    if cfg.num_layers % n_unit:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+    n = cfg.num_layers - (cfg.moe.first_k_dense if cfg.moe else 0)
+    if n % n_unit:
+        raise ValueError(f"{cfg.name}: {n} layers do not split "
                          f"into units of {cfg.layer_pattern}")
-    return cfg.num_layers // n_unit
+    return n // n_unit
 
 
 def _check_family(cfg):
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (audio: slice 11)")
+
+
+def _stack_units(make, n):
+    """n units from `make()`, each leaf stacked on a leading repeat axis.
+    The stack is filled one unit at a time, so peak memory is the stack
+    plus one unit; a stack of one is a view of its unit."""
+    unit = make()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), unit)
+    out = tree_map(lambda a: a.new_empty((n, *a.shape)), unit)
+    for r in range(n):
+        tree_map(lambda o, a: o[r].copy_(a), out, unit)
+        unit = None                            # freed before the next unit is drawn
+        if r + 1 < n:
+            unit = make()
+    return out
 
 
 def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
-    """Random params for `cfg` on `gen.device`, drawn from `gen`. Same keys
-    and shapes as `repro.models.init_params`; the numbers differ (the two
-    frameworks' generators differ)."""
+    """Random params for `cfg` on `gen.device`, drawn from `gen`. Same keys,
+    shapes and dtypes as `repro.models.init_params`; the numbers differ (the
+    two frameworks' generators differ)."""
     _check_family(cfg)
     dtype = dtype_of(cfg.param_dtype)
     dev = gen.device
     p: Dict[str, Any] = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)}
-    p["blocks"] = tree_stack([_init_dense_unit(gen, cfg, dtype)
-                          for _ in range(_n_repeats(cfg))])
+    if cfg.family == "ssm":
+        unit = lambda: _init_rwkv_unit(gen, cfg, dtype)
+    else:
+        unit = lambda: _init_dense_unit(gen, cfg, dtype, with_moe=cfg.moe is not None)
+    p["blocks"] = _stack_units(unit, _n_repeats(cfg))
+    if cfg.moe and cfg.moe.first_k_dense:
+        p["dense_prefix"] = _stack_units(lambda: _init_dense_unit(gen, cfg, dtype, False),
+                                         cfg.moe.first_k_dense)
     p["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
@@ -95,40 +147,83 @@ def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
 # sublayer application
 # ===========================================================================
 
-def _apply_unit(cfg, unit, x, attend):
-    """One repeat unit: per sublayer, norm -> `attend(j, layer_type,
-    attn_params, h)` -> (post norm) residual -> norm -> MLP -> (post norm)
-    residual. The dense family has no aux loss, so unlike `repro` this
-    returns x alone."""
+def _apply_unit(cfg, unit, x, attend, io=None):
+    """One repeat unit, for every pass. Returns (x, aux), aux the unit's
+    MoE load-balance loss: a tensor, or the Python 0.0 without MoE, so the
+    dense family issues no op for it.
+
+    Attention sublayers: norm -> `attend(j, layer_type, attn_params, h)`,
+    in parallel with the Mamba heads for the hybrid family (each output
+    normed, mixed by `fuse_beta`) -> (post norm) residual -> norm -> MLP or
+    MoE -> (post norm) residual. The ssm family's unit is RWKV6's time mix
+    and channel mix, each after a LayerNorm.
+
+    `io` carries the recurrent states: None (a training pass: they start
+    at zero and are dropped), or a dict the pass reads them from (a decode
+    step: `tm_prev`, `tm_S`, `cm_prev` or `conv{j}`, `ssm{j}`; a missing
+    key starts at zero, a Mamba state from the full-sequence conv) and
+    writes the new ones to."""
+    aux = 0.0
+    if cfg.family == "ssm":
+        sub = unit["sub0"]
+        if io is None or "tm_S" not in io:       # train or prefill: from zero
+            zprev, S0 = S.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
+            prev = {"tm_prev": zprev, "tm_S": S0, "cm_prev": zprev}
+        else:
+            prev = io
+        h = L.layernorm(sub["tm_norm"], x)
+        y, (x_tm, S2) = S.rwkv_time_mix(sub["time_mix"], cfg, h, prev["tm_prev"], prev["tm_S"])
+        x = x + y
+        h = L.layernorm(sub["cm_norm"], x)
+        y, x_cm = S.rwkv_channel_mix(sub["channel_mix"], cfg, h, prev["cm_prev"])
+        if io is not None:
+            io.update(tm_prev=x_tm, tm_S=S2, cm_prev=x_cm)
+        return x + y, aux
+
     for j, lt in enumerate(cfg.layer_pattern):
         sub = unit[f"sub{j}"]
         h = L.norm_apply(cfg.norm, sub["attn_norm"], x)
         attn_out = attend(j, lt, sub["attn"], h)
+        if cfg.family == "hybrid":
+            state = ((io[f"conv{j}"], io[f"ssm{j}"])
+                     if io is not None and f"conv{j}" in io else None)
+            ssm_out, st = S.mamba_apply(sub["mamba"], cfg, h, state=state)
+            if io is not None:
+                io[f"conv{j}"], io[f"ssm{j}"] = st
+            beta = sub["fuse_beta"].to(x.dtype)
+            attn_out = 0.5 * (
+                beta[0] * L.norm_apply(cfg.norm, sub["attn_out_norm"], attn_out)
+                + beta[1] * L.norm_apply(cfg.norm, sub["ssm_out_norm"], ssm_out))
         if cfg.post_block_norms:
             attn_out = L.norm_apply(cfg.norm, sub["post_attn_norm"], attn_out)
         x = x + attn_out
         h = L.norm_apply(cfg.norm, sub["mlp_norm"], x)
-        y = L.mlp(sub["mlp"], h, cfg.activation)
+        if "moe" in sub:
+            y, a = M.moe_apply(sub["moe"], cfg, h)
+            aux = aux + a
+        else:
+            y = L.mlp(sub["mlp"], h, cfg.activation)
         if cfg.post_block_norms:
             y = L.norm_apply(cfg.norm, sub["post_mlp_norm"], y)
         x = x + y
-    return x
+    return x, aux
 
 
 def _apply_unit_full(cfg, unit, x, positions):
-    """Full-sequence (train) pass of one repeat unit."""
+    """Full-sequence (train) pass of one repeat unit. Returns (x, aux)."""
     return _apply_unit(cfg, unit, x, lambda j, lt, p, h: A.full_attention(
         p, cfg, h, positions, layer_type=lt))
 
 
-def _apply_unit_step(cfg, unit, x, cache, window_override=0, uniform=False):
-    """Single-token decode pass of one repeat unit over its caches
-    (`kv{j}` per sublayer), which `decode_attention` writes in place."""
+def _apply_unit_step(cfg, unit, x, io, window_override=0, uniform=False):
+    """Single-token decode pass of one repeat unit over its caches: `kv{j}`
+    per sublayer, which `decode_attention` writes in place, and the
+    recurrent states, whose new values `_apply_unit` puts into `io`."""
     def attend(j, lt, p, h):
-        y, _ = A.decode_attention(p, cfg, h, cache[f"kv{j}"], layer_type=lt,
+        y, _ = A.decode_attention(p, cfg, h, io[f"kv{j}"], layer_type=lt,
                                   window_override=window_override, uniform=uniform)
         return y
-    return _apply_unit(cfg, unit, x, attend)
+    return _apply_unit(cfg, unit, x, attend, io)
 
 
 # ===========================================================================
@@ -136,13 +231,20 @@ def _apply_unit_step(cfg, unit, x, cache, window_override=0, uniform=False):
 # ===========================================================================
 
 def embed_inputs(params, cfg, batch):
-    """batch: {'tokens': (B, T) or (M, B, T) int}. Returns (x, positions)."""
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, dtype_of(cfg.compute_dtype),
-                cfg.embed_scale)
-    T = tokens.shape[-1]
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=tokens.device).expand(tokens.shape)
+    """batch: {'tokens': (B, T) or (M, B, T) int} and/or {'patch_embeds':
+    (B, P, d)} (the vlm family's stub frontend), which goes first. Returns
+    (x, positions), positions 0..P+T-1 per row."""
+    if "frame_embeds" in batch:
+        raise NotImplementedError("frame_embeds (the audio family) come in slice 11")
+    cdt = dtype_of(cfg.compute_dtype)
+    parts = []
+    if "patch_embeds" in batch:
+        parts.append(batch["patch_embeds"].to(cdt))
+    if batch.get("tokens") is not None:
+        parts.append(L.embed(params["embed"], batch["tokens"], cdt, cfg.embed_scale))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32,
+                             device=x.device).expand(x.shape[:-1])
     return x, positions
 
 
@@ -162,10 +264,21 @@ def heads(params, cfg, x):
 # entry points
 # ===========================================================================
 
+def _index(tree, r, grouped):
+    """Repeat r of a stacked unit: leaf[r], or leaf[:, r] under a model axis."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r, grouped) for k, v in tree.items()}
+    return tree[:, r] if grouped else tree[r]
+
+
+def _units(tree, grouped=False):
+    """How many repeat units a stacked tree holds."""
+    return tree_leaves(tree)[0].shape[1 if grouped else 0]
+
+
 def forward_train(params, cfg, batch, remat=False):
     """Returns (logits (..., B, T, V) fp32, values (..., B, T) fp32, aux),
-    where aux (the MoE load-balance loss in `repro`) is 0 for the dense
-    family.
+    aux the summed MoE load-balance loss (fp32 0 without MoE).
 
     remat=True checkpoints each repeat unit with
     `torch.utils.checkpoint` (non-reentrant), the counterpart of
@@ -175,24 +288,23 @@ def forward_train(params, cfg, batch, remat=False):
     kernels tile the sequence themselves, and the loop over repeats is
     plain Python."""
     _check_family(cfg)
-    grouped = batch["tokens"].dim() == 3
     x, positions = embed_inputs(params, cfg, batch)
-    for r in range(_n_repeats(cfg)):
-        unit = _index(params["blocks"], r, grouped)
-        if remat:
-            x = checkpoint(lambda x, unit=unit: _apply_unit_full(cfg, unit, x, positions),
-                           x, use_reentrant=False)
-        else:
-            x = _apply_unit_full(cfg, unit, x, positions)
+    grouped = x.dim() == 4
+    if grouped and (cfg.moe or cfg.ssm):
+        raise ValueError(f"{cfg.name}: a leading model axis is taken by the dense family only")
+    aux = 0.0
+    for group in GROUPS:
+        if group not in params:
+            continue
+        for r in range(_units(params[group], grouped)):
+            unit = _index(params[group], r, grouped)
+            fn = lambda x, unit=unit: _apply_unit_full(cfg, unit, x, positions)
+            x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+            aux = aux + a
     logits, values = heads(params, cfg, x)
-    return logits, values, torch.zeros((), device=logits.device)
-
-
-def _index(tree, r, grouped):
-    """Repeat r of a stacked unit: leaf[r], or leaf[:, r] under a model axis."""
-    if isinstance(tree, dict):
-        return {k: _index(v, r, grouped) for k, v in tree.items()}
-    return tree[:, r] if grouped else tree[r]
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), device=logits.device)
+    return logits, values, aux
 
 
 # ===========================================================================
@@ -206,16 +318,28 @@ def _check_decoder(cfg):
 
 
 def _init_unit_cache(cfg, batch, cache_len, dtype, prefilled=0, device=None):
-    return {f"kv{j}": A.init_kv_cache(cfg, batch, cache_len, dtype, prefilled, device)
-            for j in range(len(cfg.layer_pattern))}
+    if cfg.family == "ssm":
+        xp, S0 = S.init_rwkv_state(cfg, batch, dtype, device)
+        return {"tm_prev": xp, "tm_S": S0, "cm_prev": xp.clone()}
+    c = {}
+    for j in range(len(cfg.layer_pattern)):
+        c[f"kv{j}"] = A.init_kv_cache(cfg, batch, cache_len, dtype, prefilled, device)
+        if cfg.family == "hybrid":
+            c[f"conv{j}"], c[f"ssm{j}"] = S.init_mamba_state(cfg, batch, dtype, device)
+    return c
 
 
-def _stacked_cache(cfg, batch, cache_len, dtype, prefilled, device):
-    """Every repeat unit's cache, each leaf stacked on a leading repeat
+def _stacked_cache(cfg, batch, cache_len, dtype, prefilled, device, reps):
+    """`reps` repeat units' caches, each leaf stacked on a leading repeat
     axis (the layout `jax.vmap` gives `repro`'s)."""
     one = _init_unit_cache(cfg, batch, cache_len, dtype, prefilled, device)
-    reps = _n_repeats(cfg)
     return tree_map(lambda a: a.expand(reps, *a.shape).contiguous(), one)
+
+
+def _group_sizes(cfg):
+    """(group, repeat units) in run order: kimi-k2's dense prefix, then the blocks."""
+    fkd = cfg.moe.first_k_dense if cfg.moe else 0
+    return [(g, n) for g, n in zip(GROUPS, (fkd, _n_repeats(cfg))) if n]
 
 
 def init_decode_state(cfg, batch, seq_len, *, sliding=False, prefilled=None,
@@ -223,14 +347,15 @@ def init_decode_state(cfg, batch, seq_len, *, sliding=False, prefilled=None,
     """State for `decode_step`, as if `seq_len` positions had been
     decoded. sliding=True uses the O(window) ring buffer of
     `cfg.long_context_window` slots (the sub-quadratic long_500k variant).
-    `prefilled` (default: all) marks how many slots hold valid keys.
-    `device` defaults to CUDA and raises where there is none."""
+    `prefilled` (default: all) marks how many slots hold valid keys; the
+    recurrent states start at zero. `device` defaults to CUDA and raises
+    where there is none."""
     _check_decoder(cfg)
     cache_len = min(seq_len, cfg.long_context_window) if sliding else seq_len
     pref = min(seq_len if prefilled is None else prefilled, cache_len)
     dev = resolve_device(device)
-    state = {"blocks": _stacked_cache(cfg, batch, cache_len, dtype_of(cfg.compute_dtype),
-                                      pref, dev)}
+    state = {g: _stacked_cache(cfg, batch, cache_len, dtype_of(cfg.compute_dtype), pref,
+                               dev, n) for g, n in _group_sizes(cfg)}
     # ring-buffer semantics: `length` is the absolute next position even when
     # the cache only holds the last `cache_len` entries.
     state["length"] = torch.full((batch,), seq_len, dtype=torch.int32, device=dev)
@@ -238,42 +363,51 @@ def init_decode_state(cfg, batch, seq_len, *, sliding=False, prefilled=None,
 
 
 def decode_step(params, cfg, tokens, state, *, window=0, uniform=False):
-    """One token per row. tokens: (B, 1) ints. `window` > 0 masks keys
-    more than `window` positions back in every layer: pair it with a
-    ring-buffer cache of that size for the sub-quadratic long_500k variant.
+    """One token per row. tokens: (B, 1) ints, or a dict holding `tokens`
+    or `patch_embeds` (B, 1, d). `window` > 0 masks keys more than
+    `window` positions back in every layer: pair it with a ring-buffer
+    cache of that size for the sub-quadratic long_500k variant.
     `uniform=True` says every row is at the same position (one write slot
     for all rows). Returns (logits (B, 1, V) fp32, values (B, 1) fp32,
     state).
 
     The state passed in is consumed: each layer's new k, v and position go
     into its cache tensors in place (O(B * KV * hd) bytes a layer, not a
-    copy of the stacked cache), and the returned state holds the same
-    tensors with `length` advanced. Keep no other reference to it."""
+    copy of the stacked cache), its recurrent states are copied into
+    theirs, and the returned state holds the same tensors with `length`
+    advanced. Keep no other reference to it."""
     _check_decoder(cfg)
-    if isinstance(tokens, dict):
-        if "patch_embeds" in tokens:
-            raise NotImplementedError(
-                f"{cfg.name}: patch_embeds decode comes with the vlm family")
-        tokens = tokens["tokens"]
-    x = L.embed(params["embed"], tokens, dtype_of(cfg.compute_dtype), cfg.embed_scale)
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    cdt = dtype_of(cfg.compute_dtype)
+    if "tokens" in batch:
+        x = L.embed(params["embed"], batch["tokens"], cdt, cfg.embed_scale)
+    else:
+        x = batch["patch_embeds"].to(cdt)
     length = state["length"]
-    for r in range(_n_repeats(cfg)):
-        # every unit's caches decode at the state's length (`repro`'s
-        # per-unit override)
-        cache = {key: {**_index(c, r, False), "length": length}
-                 for key, c in state["blocks"].items()}
-        x = _apply_unit_step(cfg, _index(params["blocks"], r, False), x, cache,
-                             window_override=window, uniform=uniform)
     new_length = length + 1
-    for c in state["blocks"].values():
-        c["length"].copy_(new_length.expand_as(c["length"]))
+    for group, n in _group_sizes(cfg):
+        stacked = state[group]
+        for r in range(n):
+            # every unit's caches decode at the state's length (`repro`'s
+            # per-unit override)
+            io = {key: ({**_index(c, r, False), "length": length} if isinstance(c, dict)
+                        else c[r]) for key, c in stacked.items()}
+            x, _ = _apply_unit_step(cfg, _index(params[group], r, False), x, io,
+                                    window_override=window, uniform=uniform)
+            for key, c in stacked.items():
+                if not isinstance(c, dict):
+                    c[r].copy_(io[key])
+        for c in stacked.values():
+            if isinstance(c, dict):
+                c["length"].copy_(new_length.expand_as(c["length"]))
     logits, values = heads(params, cfg, x)
     return logits, values, {**state, "length": new_length}
 
 
 def prefill(params, cfg, batch, *, sliding=False, reserve=64):
     """Full forward over the prompt, and the decode state built from its
-    keys and values. Returns (logits (B, T, V) fp32, values (B, T), state).
+    keys and values and the recurrent states at its end. Returns (logits
+    (B, T, V) fp32, values (B, T), state); T counts the patch prefix.
 
     The cache holds `T + reserve` slots (`reserve` keeps the next
     decode_steps from ring-overwriting prompt keys, slot t % cache_len), or
@@ -293,19 +427,27 @@ def prefill(params, cfg, batch, *, sliding=False, reserve=64):
     cache_len = min(T, cfg.long_context_window) if sliding else T + reserve
     start = max(T - cache_len, 0)
     slots = torch.arange(start, T, device=x.device) % cache_len
-    blocks = _stacked_cache(cfg, B, cache_len, dtype_of(cfg.compute_dtype), 0, x.device)
-    for r in range(_n_repeats(cfg)):
-        def attend(j, lt, p, h, r=r):
-            y, k, v = A.full_attention(p, cfg, h, positions, layer_type=lt, return_kv=True)
-            kc = _index(blocks[f"kv{j}"], r, False)
-            kc["k"][:, slots] = k[:, start:]
-            kc["v"][:, slots] = v[:, start:]
-            kc["pos"][:, slots] = positions[:, start:]
-            return y
-        x = _apply_unit(cfg, _index(params["blocks"], r, False), x, attend)
-    for c in blocks.values():
-        c["length"].fill_(T)
+    state = {}
+    for group, n in _group_sizes(cfg):
+        stacked = _stacked_cache(cfg, B, cache_len, dtype_of(cfg.compute_dtype), 0,
+                                 x.device, n)
+        for r in range(n):
+            def attend(j, lt, p, h, r=r):
+                y, k, v = A.full_attention(p, cfg, h, positions, layer_type=lt,
+                                           return_kv=True)
+                kc = _index(stacked[f"kv{j}"], r, False)
+                kc["k"][:, slots] = k[:, start:]
+                kc["v"][:, slots] = v[:, start:]
+                kc["pos"][:, slots] = positions[:, start:]
+                return y
+            io = {}
+            x, _ = _apply_unit(cfg, _index(params[group], r, False), x, attend, io)
+            for key, t in io.items():
+                stacked[key][r].copy_(t)
+        for c in stacked.values():
+            if isinstance(c, dict):
+                c["length"].fill_(T)
+        state[group] = stacked
     logits, values = heads(params, cfg, x)
-    state = {"blocks": blocks,
-             "length": torch.full((B,), T, dtype=torch.int32, device=x.device)}
+    state["length"] = torch.full((B,), T, dtype=torch.int32, device=x.device)
     return logits, values, state

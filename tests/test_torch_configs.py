@@ -1,20 +1,25 @@
 """The port's architecture registry against the JAX package's: the same
 names, every field of every config and of its `smoke()` variant, the same
-input shapes; the families the port does not run yet raise in
-`init_params`."""
+input shapes; `init_params` gives `repro`'s tree (keys, shapes, dtypes) for
+the moe, ssm, hybrid and vlm archs, and the family the port does not run
+yet (audio) raises."""
 import dataclasses
 
+import jax
+import numpy as np
 import pytest
 import torch
 
 from repro.configs import INPUT_SHAPES as JAX_INPUT_SHAPES
 from repro.configs import get_arch as jax_arch
 from repro.configs import list_archs as jax_list_archs
+from repro.models import init_params as jax_init
 from repro_torch.configs import INPUT_SHAPES, get_arch, list_archs
 from repro_torch.models import init_params
+from repro_torch.utils import tree_flatten_with_path
 
-NOT_DENSE = ["pixtral-12b", "rwkv6-3b", "hubert-xlarge", "kimi-k2-1t-a32b",
-             "qwen3-moe-235b-a22b", "hymba-1.5b"]
+NOT_PORTED = ["hubert-xlarge"]
+FAMILIES = ["pixtral-12b", "rwkv6-3b", "kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "hymba-1.5b"]
 
 
 def test_registry_names_match_repro():
@@ -35,7 +40,19 @@ def test_input_shapes_match_repro():
         k: dataclasses.asdict(v) for k, v in JAX_INPUT_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", NOT_DENSE)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_init_params_raises_for_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         init_params(torch.Generator().manual_seed(0), get_arch(arch).smoke())
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_init_params_tree_matches_repro(arch):
+    """Same paths, shapes and dtypes as `repro`'s init at `smoke()`
+    (kimi-k2's `dense_prefix` stack included); the numbers differ."""
+    want = jax.eval_shape(lambda: jax_init(jax.random.PRNGKey(0), jax_arch(arch).smoke()))
+    got = init_params(torch.Generator().manual_seed(0), get_arch(arch).smoke())
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [(jax.tree_util.keystr(p), tuple(a.shape), str(np.dtype(a.dtype))) for p, a in flat] \
+        == [(p, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for p, t in tree_flatten_with_path(got)[0]]

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 the learner's league side (the DataServer's staging, manifests of card
 tensors, the Learner) against its CPU run, the envs' steps on the card
-against the CPU's (bitwise), and an Actor segment's exact kernel launches.
+against the CPU's (bitwise), an Actor segment's exact kernel launches, and
+a decode step of each moe, ssm, hybrid and vlm smoke config with no host
+sync.
 
 Marked `cuda`: every test skips where there is no CUDA device, since a CUDA
 kernel has no CPU mode. This file imports neither jax nor `repro`, so the
@@ -73,6 +75,10 @@ def gen():
     ((131072, 128), torch.bfloat16, 1, 0),  # more rows than the card holds: strided, prefetched
     ((2, 40000, 128), torch.bfloat16, 2, 0),  # strided rows crossing the model boundary
     ((50000, 96), torch.float32, 1, 0),     # the two-pass kernel, strided
+    # the families' hidden widths (hymba 1600, pixtral 5120, kimi-k2 7168)
+    # at a decode step's rows, 4 prompts and one past a multiple of 4096
+    *[((rows, d), torch.bfloat16, 1, 0) for d in (1600, 5120, 7168) for rows in (1, 4, 4097)],
+    ((4097, 1600), torch.float32, 1, 0),
 ])
 def test_rmsnorm_kernel_matches_plain(gen, shape, dtype, models, offset):
     n = int(np.prod(shape))
@@ -106,6 +112,15 @@ FLASH = [
     (2, 4, 2, 65, 65, 32, torch.bfloat16, True, 8, 30.0, 50, False),      # rows with no live key
     (2, 4, 4, 50, 50, 32, torch.float32, True, 0, 0.0, None, False),
     (1, 8, 2, 65, 37, 64, torch.float32, False, 0, 10.0, None, False),
+    # the families' groups: G = 5 (hymba, 25/5 heads of 64, every layer
+    # windowed), G = 8 (kimi-k2, 64/8 of 128), G = 16 (qwen3-moe, 64/4);
+    # T off the tile multiples
+    (2, 25, 5, 67, 67, 64, torch.bfloat16, True, 16, 0.0, None, False),
+    (1, 25, 5, 37, 37, 64, torch.float32, True, 8, 0.0, None, False),
+    (2, 64, 8, 50, 50, 128, torch.bfloat16, True, 0, 0.0, None, False),
+    (1, 64, 8, 33, 33, 128, torch.float32, True, 0, 0.0, None, False),
+    (2, 64, 4, 37, 37, 128, torch.bfloat16, True, 0, 0.0, None, False),
+    (1, 16, 1, 45, 45, 128, torch.float32, True, 0, 0.0, None, False),
 ]
 
 
@@ -490,3 +505,32 @@ def test_actor_segment_launches_exactly_its_forwards(gen):
         forwards = T + 1 if served else 2 * T + 1
         assert [k.launches for k in kernels] == [forwards * (2 * L + 1), forwards * L, 0, 0, 0]
         assert traj["obs"].shape == (8, T, 26) and traj["actions"].dtype == np.int32
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "rwkv6-3b",
+                                  "hymba-1.5b", "pixtral-12b"])
+def test_family_decode_step_has_no_host_sync(gen, arch):
+    """A decode step of each family's smoke config (MoE routing, the RWKV6
+    and Mamba states) under `set_sync_debug_mode("error")`, with exactly
+    its RMSNorm launches and no flash forward."""
+    from repro_torch.models import decode_step, prefill
+
+    cfg = get_arch(arch).smoke()
+    params = init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device="cuda")
+    with torch.inference_mode():
+        logits, _, state = prefill(params, cfg, {"tokens": toks})
+        tok = logits[:, -1:].argmax(-1)
+        norms = 0 if cfg.family == "ssm" else (
+            (2 + 2 * cfg.qk_norm + 2 * (cfg.family == "hybrid")) * cfg.num_layers + 1)
+        before = (rmsnorm.launches, flash_attention_fwd.launches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, v, state = decode_step(params, cfg, tok, state, uniform=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (rmsnorm.launches - before[0], flash_attention_fwd.launches - before[1]) == (
+            norms, 0)
+        assert torch.isfinite(lg).all() and torch.isfinite(v).all()
+        assert state["length"].tolist() == [25, 25]

@@ -9,8 +9,10 @@ the multiprocess league as users start it, the k8s render against
   step quota of 4: a clean shutdown, every exit code 0, and one JSON
   result line per child that parses, with its kernel launch counts.
 - The CLI without `--device` on a host without a card raises instead of
-  running on the CPU; `--sharded` and the decode demo raise
-  `NotImplementedError` (ROADMAP queue 1 items 8 and 9).
+  running on the CPU; `--sharded` raises `NotImplementedError` (ROADMAP
+  queue 1 item 8). The decode demo runs on the CPU, for a dense arch
+  through the CLI and for one arch of each other decoding family in
+  process.
 - `k8s.render()` equals `repro`'s line for line, apart from the module
   names, the accelerator and the accelerator node pool.
 - `ModelPoolReplica` (the `--role pool-replica` process's core), as
@@ -145,6 +147,22 @@ def test_decode_demo_runs_on_cpu():
     assert out["new_tokens"] == 4 and len(out["tokens0"]) == 4 and out["window"] == 0
     assert out["prefill_ms"] > 0 and out["decode_ms_per_token"] > 0
     assert all(0 <= t < 512 for t in out["tokens0"])
+
+
+@pytest.mark.parametrize("arch,sliding", [("qwen3-moe-235b-a22b", False), ("rwkv6-3b", True),
+                                          ("hymba-1.5b", True), ("pixtral-12b", False)])
+def test_decode_demo_runs_each_family_on_cpu(arch, sliding, capsys):
+    """The demo as `repro`'s runs these archs: token prompts only (pixtral
+    too), and `--sliding` gives the ssm family no window."""
+    from repro_torch.launch.serve import serve
+
+    out = serve(arch, smoke=True, batch=2, prompt_len=20, new_tokens=3, sliding=sliding,
+                temperature=0.0, device="cpu")
+    assert len(out) == 3 and all(t.shape == (2, 1) for t in out)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["arch"] == f"{arch}-smoke" and line["new_tokens"] == 3
+    assert line["window"] == (128 if sliding and arch != "rwkv6-3b" else 0)
+    assert all(0 <= t < 512 for t in line["tokens0"])
 
 
 def test_role_params_seed_every_mode_alike():

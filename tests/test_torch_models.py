@@ -122,7 +122,7 @@ def test_init_params_layout_matches_jax(kw):
 
 
 def test_non_dense_family_raises():
-    cfg = dataclasses.replace(get_arch("tleague-policy-s"), family="ssm")
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), family="audio")
     with pytest.raises(NotImplementedError):
         init_params(torch.Generator().manual_seed(0), cfg)
 
