@@ -80,7 +80,25 @@ drives the port's paths on the card:
   decode steps with exactly their launches, a step with no host sync (MoE
   routing included), the MoE choices dropped at prefill, long_500k steps
   for hymba (its ring) and rwkv6 (its O(1) state), decode against
-  forward_train, and one unit card vs CPU with equal routing slots.
+  forward_train (rwkv6's also at fp64 compute, a rounding witness), and
+  one unit card vs CPU with equal routing slots (kimi-k2's: its dense
+  prefix and one MoE layer, the experts cut to 16);
+- audio: hubert-xlarge at full width and depth (48 layers, d 1280, 16
+  heads of 80, bidirectional): `prefill` over 1 x 32,768 frame embeddings
+  (prefill_32k, batch cut from 32), `build_mlm_train_step` on 4 x 4,096
+  frames under a seeded HuBERT mask (train_4k, batch cut from 256), each
+  with exactly its launches and profiled, and one layer card vs CPU
+  (prefill, and a masked-unit step's loss, masked_acc and every grad);
+- train_families: `build_seq_train_step` (PPO + GAE, adamw with fp32
+  master params for bf16 params, updated in place) for qwen3-moe (1
+  layer), rwkv6 and hymba (2 layers, T = 256), pixtral (2 layers, 1,024
+  patches + 1,024 tokens) and gemma2-2b (full depth, 4 x 1,024): exact
+  launches, finite grads, a falling loss over 3 steps on one batch, one
+  unit card vs CPU (loss and every grad leaf).
+
+Phase 3 and 3b also hold the flash kernels at head dim 80 (hubert's train
+shape in bf16, the fp32 regime at T = 1,024) and the backward at G = 16,
+8 and 5 against their plain versions.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -181,6 +199,34 @@ FAMILY_STEPS = 16
 MOE_CONS_B, MOE_CONS_T = 1, 7
 BF16_CONSISTENCY_TOL = 2e-2
 STATE_TOL = 1e-5                               # card vs CPU, recurrent and cache states
+# kimi-k2's card-vs-CPU unit: its dense prefix and one MoE layer at full
+# width, the experts cut from 384 to 16 (top-8 of 16) so that the CPU holds
+# the unit (~3.9 B params, bf16)
+KIMI_CPU_EXPERTS = 16
+# the audio path: hubert-xlarge at full width and depth (48 layers, d 1280,
+# 16 heads of 80; fp32 params, bf16 compute), seeded. prefill_32k's length
+# with its batch cut from 32 to 1; train_4k's length with its batch cut
+# from 256 to 4 and the HuBERT mask (arXiv:2106.07447, after wav2vec 2.0):
+# span starts drawn at p = 0.08, spans of 10 frames
+AUDIO_PREFILL_B, AUDIO_PREFILL_T = 1, 32768
+AUDIO_PREFILLS = 2                             # timed, after one warm-up
+AUDIO_B, AUDIO_T = 4, 4096
+AUDIO_MASK_P, AUDIO_MASK_SPAN = 0.08, 10
+AUDIO_STEPS = 3                                # timed, after one warm-up
+AUDIO_CPU_B, AUDIO_CPU_T = 2, 128              # card vs CPU, one full-width layer
+# the families' train steps (build_seq_train_step: PPO + GAE, remat,
+# adamw(3e-4, clip_norm=1.0, master_fp32 for bf16 params), updated in
+# place): full width, the depth cut to fit one card; arch -> (layers, or
+# None for full depth, batch, tokens, patch embeddings first)
+TRAIN_FAMILIES = {"qwen3-moe-235b-a22b": (1, 1, 1024, 0), "rwkv6-3b": (2, 4, 256, 0),
+                  "hymba-1.5b": (2, 4, 256, 0), "pixtral-12b": (2, 4, 1024, PATCHES),
+                  "gemma2-2b": (None, 4, 1024, 0)}
+TRAIN_STEPS = 3                                # timed, after one step on the same batch
+# the descent check's linear warmup: repro's launch optimizer (constant
+# 3e-4) makes a first Adam step that moves PPO's ratio by 10^3 or more at
+# these widths (in both packages), so the loss may rise before it falls
+TRAIN_WARMUP = 100
+TRAIN_CPU_B, TRAIN_CPU_T, TRAIN_CPU_PATCHES = 2, 64, 16   # card vs CPU, one unit
 # q is drawn at this scale in the gemma2 flash rows: scores of std ~8 reach
 # the softcap of 50, so dropping the cap moves o and lse past the tolerance
 GEMMA2_Q_SCALE = 8.0
@@ -226,9 +272,12 @@ def ptxas_summary(log: str):
 
 
 def rel_err(got, want) -> float:
-    """max |got - want| over max(1, max |want|), in fp32."""
-    want = want.float()
-    return ((got.float() - want).abs().max() / max(1.0, want.abs().max().item())).item()
+    """max |got - want| over max(1, max |want|), in fp32 (fp64 where either
+    is fp64)."""
+    import torch
+    dt = torch.float64 if torch.float64 in (got.dtype, want.dtype) else torch.float32
+    want = want.to(dt)
+    return ((got.to(dt) - want).abs().max() / max(1.0, want.abs().max().item())).item()
 
 
 def seq_config(get_arch):
@@ -252,17 +301,36 @@ def env_batch(rng, B, T, dev):
         "bootstrap_value": rng.normal(size=(B,)).astype(np.float32)}.items()}
 
 
-def seq_batch(rng, T, vocab, dev):
-    """One T-token trajectory whose actions are tokens (V-trace)."""
+def seq_batch(rng, T, vocab, dev, B=1):
+    """B T-token trajectories whose actions are tokens (V-trace, PPO)."""
     import torch
     return {k: torch.from_numpy(v).to(dev) for k, v in {
-        "tokens": rng.integers(0, vocab, (1, T)).astype(np.int64),
-        "actions": rng.integers(0, vocab, (1, T)).astype(np.int64),
-        "behavior_logp": (-np.abs(rng.normal(size=(1, T))) - 6.0).astype(np.float32),
-        "behavior_values": rng.normal(size=(1, T)).astype(np.float32),
-        "rewards": rng.normal(size=(1, T)).astype(np.float32),
-        "discounts": (0.99 * (rng.random((1, T)) >= 0.01)).astype(np.float32),
-        "bootstrap_value": rng.normal(size=(1,)).astype(np.float32)}.items()}
+        "tokens": rng.integers(0, vocab, (B, T)).astype(np.int64),
+        "actions": rng.integers(0, vocab, (B, T)).astype(np.int64),
+        "behavior_logp": (-np.abs(rng.normal(size=(B, T))) - 6.0).astype(np.float32),
+        "behavior_values": rng.normal(size=(B, T)).astype(np.float32),
+        "rewards": rng.normal(size=(B, T)).astype(np.float32),
+        "discounts": (0.99 * (rng.random((B, T)) >= 0.01)).astype(np.float32),
+        "bootstrap_value": rng.normal(size=(B,)).astype(np.float32)}.items()}
+
+
+def hubert_mask(rng, B, T):
+    """HuBERT's mask: each frame starts a span with probability
+    AUDIO_MASK_P, and a span masks AUDIO_MASK_SPAN frames from its start."""
+    starts = rng.random((B, T)) < AUDIO_MASK_P
+    mask = np.zeros((B, T), dtype=bool)
+    for s in range(AUDIO_MASK_SPAN):
+        mask[:, s:] |= starts[:, :T - s]
+    return mask
+
+
+def grads_only():
+    """An optimizer that changes nothing and returns the grads it was fed
+    among its metrics: a train step's loss and grads, with no optimizer
+    memory (the card-vs-CPU checks of full-width units)."""
+    from repro_torch.optim import Optimizer
+    return Optimizer(lambda params: {}, lambda grads, state, params: (params, state,
+                                                                      {"grads": grads}))
 
 
 def with_grads(opt):
@@ -1865,9 +1933,12 @@ def families_phase(dev, counters, smi):
       states after position T, by prefill + step and by one prefill over
       T + 1 tokens, compared layer by layer (the first layer within
       STATE_TOL: both routes feed it the same embeddings);
-    - card vs CPU at fp32 compute: one unit (kimi-k2's: one dense layer at
-      its widths, a `blocks` stack with moe=None, since its MoE unit would
-      need a 67.6 GB fp32 copy of its experts), a
+    - rwkv6: the same seeded prefill + step against forward_train at fp64
+      compute (its fp32 params), recorded with the states by layer;
+    - card vs CPU at fp32 compute: one unit (kimi-k2's: its dense prefix
+      (`_group_sizes`' first group) and one MoE layer with its shared
+      expert, the experts cut to KIMI_CPU_EXPERTS, since its full MoE unit
+      would need a 67.6 GB fp32 copy of its experts), a
       prefill of DECODE_CPU_T tokens (pixtral after 16 patches) and
       DECODE_CPU_STEPS steps: the routing slots equal, logits and values
       within CARD_VS_CPU_TOL and every state leaf within STATE_TOL of
@@ -2042,12 +2113,34 @@ def families_phase(dev, counters, smi):
                       f"{by_layer[0]} > {STATE_TOL}")
                 rec["consistency"]["state_err_by_layer"] = by_layer
                 del sf
+            if arch == "rwkv6-3b":
+                # the rounding witness: the same seeded prefill + step
+                # against forward_train at fp64 compute over the same fp32
+                # params; rounding falls to fp64's, a hand-off fault would not
+                cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+                _, _, st64 = prefill(params, cfg64, short)
+                d64, dv64, st64 = decode_step(params, cfg64, last, st64)
+                f64, fv64, _ = forward_train(params, cfg64, full)
+                _, _, sf64 = prefill(params, cfg64, full)
+                keys = [k for k, c in st64["blocks"].items() if not isinstance(c, dict)]
+                rec["consistency"]["float64"] = {
+                    "err": max(rel_err(d64[:, 0], f64[:, pos]), rel_err(dv64[:, 0], fv64[:, pos])),
+                    "logits_dtype": str(d64.dtype).replace("torch.", ""),
+                    "state_dtype": str(st64["blocks"]["tm_S"].dtype).replace("torch.", ""),
+                    "state_err_by_layer": [
+                        max(rel_err(st64["blocks"][k][r], sf64["blocks"][k][r]) for k in keys)
+                        for r in range(st64["blocks"][keys[0]].shape[0])]}
+                del st64, sf64, d64, dv64, f64, fv64
             del st, params
         torch.cuda.empty_cache()
 
-        # card vs CPU: one unit at full width, fp32 compute
-        cfg1 = dataclasses.replace(cfg, num_layers=1, compute_dtype="float32",
-                                   **({"moe": None} if kimi else {}))
+        # card vs CPU: one unit at full width, fp32 compute; kimi-k2's
+        # dense prefix and one MoE layer with KIMI_CPU_EXPERTS experts
+        cfg1 = dataclasses.replace(cfg, num_layers=1, compute_dtype="float32")
+        if kimi:
+            cfg1 = dataclasses.replace(cfg1, num_layers=cfg.moe.first_k_dense + 1,
+                                       moe=dataclasses.replace(cfg.moe,
+                                                               num_experts=KIMI_CPU_EXPERTS))
         ctoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                               (DECODE_CPU_B, DECODE_CPU_T + DECODE_CPU_STEPS)))
         cpatch = torch.from_numpy(rng.normal(size=(DECODE_CPU_B, 16, cfg.d_model))
@@ -2085,8 +2178,9 @@ def families_phase(dev, counters, smi):
             for what, e, t in (("logits_values", errs["logits_values"], CARD_VS_CPU_TOL),
                                ("state", errs["state"], STATE_TOL)):
                 check(e <= t, f"{arch} card vs CPU ({what}): {e} > {t}")
-            rec["card_vs_cpu"] = {"unit": ("one dense layer (blocks, moe=None)" if kimi
-                                           else "one layer"),
+            rec["card_vs_cpu"] = {"unit": (f"the dense prefix and one MoE layer, "
+                                           f"{KIMI_CPU_EXPERTS} of {cfg.moe.num_experts} experts"
+                                           if kimi else "one layer"),
                                   "batch": DECODE_CPU_B, "prompt": DECODE_CPU_T,
                                   "steps": DECODE_CPU_STEPS, "routes_equal": len(r_dev),
                                   "max_err": errs,
@@ -2099,6 +2193,302 @@ def families_phase(dev, counters, smi):
              compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype, batch=DECODE_B,
              prompt=T, steps=FAMILY_STEPS, **rec)
     emit("families_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total)
+    return total, out
+
+
+
+def grads_vs_cpu(step, params_dev, batch_cpu, dev, counters, total, what):
+    """One train step of `step` (built on `grads_only()`) on the CPU and on
+    the card from the same params and batch: the card's launches are added
+    to `total`, and the loss, the other scalar metrics and every grad leaf
+    are compared within CARD_VS_CPU_TOL (grads of max(1, max |cpu|)); the
+    MoE routing slots must be equal."""
+    import torch
+
+    from repro_torch.utils import tree_flatten_with_path, tree_map
+
+    to = lambda t, d: tree_map(lambda a: a.to(d), t)
+    with moe_routes() as routes:
+        _, _, m_cpu = step(to(params_dev, "cpu"), {}, batch_cpu)
+        r_cpu = [s.cpu() for s, _ in routes]
+        routes.clear()
+        zero(counters)
+        _, _, m_dev = step(params_dev, {}, to(batch_cpu, dev))
+        for k, n in read(counters).items():
+            total[k] += n
+        check_on_card(what)
+        r_dev = [s.cpu() for s, _ in routes]
+    check(len(r_dev) == len(r_cpu) and all(torch.equal(a, b) for a, b in zip(r_dev, r_cpu)),
+          f"{what}: routing slots differ")
+    g_dev, g_cpu = m_dev.pop("grads"), m_cpu.pop("grads")
+    errs = {k: abs(m_dev[k].item() - m_cpu[k].item()) for k in m_cpu}
+    errs["grads"] = max(rel_err(a.cpu(), b) for (_, a), (_, b) in
+                        zip(tree_flatten_with_path(g_dev)[0], tree_flatten_with_path(g_cpu)[0]))
+    for k, e in errs.items():
+        check(e <= CARD_VS_CPU_TOL, f"{what} ({k}): {e} > {CARD_VS_CPU_TOL}")
+    return {"max_err": errs, "routes_equal": len(r_dev), "tol": CARD_VS_CPU_TOL}
+
+
+def audio_phase(dev, counters, smi):
+    """The audio family (hubert-xlarge: an encoder-only stack over frame
+    embeddings, head dim 80, bidirectional attention) at full width and
+    depth, seeded, fp32 params and bf16 compute:
+
+    - the encoder's serving pass (`prefill_32k`): `prefill` over
+      AUDIO_PREFILL_B x AUDIO_PREFILL_T frame embeddings, one warm-up and
+      AUDIO_PREFILLS timed, each with exactly its flash forwards (one per
+      layer; hubert's norms are LayerNorms, plain PyTorch as in `repro`),
+      and one profiled;
+    - `train_4k`: `build_mlm_train_step` (remat, adamw(3e-4,
+      clip_norm=1.0), updated in place) on AUDIO_B x AUDIO_T frames under a
+      seeded HuBERT mask, one warm-up and AUDIO_STEPS timed, each with
+      exactly its launches (per layer two flash forwards, dq and dk/dv),
+      and one profiled;
+    - card vs CPU at fp32 compute, one full-width layer: prefill logits and
+      values, and one masked-unit step's loss, masked_acc and every grad
+      leaf within CARD_VS_CPU_TOL."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.learners import build_mlm_train_step
+    from repro_torch.models import init_params, prefill
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    names = [c.__name__ for c in counters]
+    total = dict.fromkeys(names, 0)
+    counted = lambda fn, want, what: counted_run(counters, total, fn, want, what)
+    cfg = get_arch("hubert-xlarge")
+    L = cfg.num_layers
+    per_prefill = {"flash_attention_fwd": L}
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+    rec = {"layers": L, "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "compute_dtype": cfg.compute_dtype,
+           "param_dtype": cfg.param_dtype, "launches_per_prefill": per_prefill,
+           "launches_per_step": per_step,
+           "cuts": {"prefill_32k": f"batch 32 -> {AUDIO_PREFILL_B}",
+                    "train_4k": f"batch 256 -> {AUDIO_B}"}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=dev).manual_seed(18), cfg)
+    rec["params"] = sum(t.numel() for t in tree_leaves(params))
+
+    with torch.inference_mode():
+        frames = torch.randn(AUDIO_PREFILL_B, AUDIO_PREFILL_T, cfg.d_model, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(19))
+        batch = {"frame_embeds": frames}
+        prefill_ms = []
+        for i in range(1 + AUDIO_PREFILLS):
+            ms, (logits, values, state) = counted(
+                lambda: sync_wall(lambda: prefill(params, cfg, batch)), per_prefill,
+                "hubert prefill")
+            prefill_ms += [ms] if i else []
+        check(logits.shape == (AUDIO_PREFILL_B, AUDIO_PREFILL_T, cfg.vocab_size)
+              and finite(logits, values), "hubert prefill: outputs")
+        check(int(state["length"][0]) == AUDIO_PREFILL_T and ring(state)
+              == (-1, AUDIO_PREFILL_T - 1), f"hubert prefill: cache {ring(state)}")
+        del logits, values, state
+        zero(counters)
+        rec["profile_prefill"] = profiled(lambda: prefill(params, cfg, batch), 1)
+        for k, n in read(counters).items():
+            total[k] += n
+        rec["dispatch_prefill"] = check_on_card("hubert prefill profiled")
+        del frames, batch
+    rec.update(prefill_ms_each=prefill_ms, prefill_ms_median=statistics.median(prefill_ms),
+               prefill_peak_cuda_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # train_4k: masked-unit prediction
+    mask = hubert_mask(rng, AUDIO_B, AUDIO_T)
+    mb = {"frame_embeds": torch.randn(AUDIO_B, AUDIO_T, cfg.d_model, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(20)),
+          "units": torch.from_numpy(rng.integers(0, cfg.vocab_size, (AUDIO_B, AUDIO_T))).to(dev),
+          "mask": torch.from_numpy(mask).to(dev)}
+    opt = adamw(3e-4, clip_norm=1.0, master_fp32=cfg.param_dtype == "bfloat16", inplace=True)
+    step = build_mlm_train_step(cfg, opt)
+    state = opt.init(params)
+    step_ms, losses, accs = [], [], []
+    for i in range(1 + AUDIO_STEPS):
+        ms, (params, state, m) = counted(lambda: sync_wall(lambda: step(params, state, mb)),
+                                         per_step, "hubert mlm step")
+        losses.append(m["loss"].item())
+        accs.append(m["masked_acc"].item())
+        step_ms += [ms] if i else []
+    check(all(np.isfinite(losses)) and all(bool(t.isfinite().all()) for t in tree_leaves(params)),
+          f"hubert mlm step: non-finite loss {losses} or params")
+    zero(counters)
+    rec["profile_step"] = profiled(lambda: step(params, state, mb), 1)
+    for k, n in read(counters).items():
+        total[k] += n
+    rec["dispatch_step"] = check_on_card("hubert mlm step profiled")
+    rec.update(mask_share=float(mask.mean()), step_ms_each=step_ms,
+               step_ms_median=statistics.median(step_ms), losses=losses, masked_acc=accs,
+               step_peak_cuda_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+    del params, state, mb, opt, step
+    torch.cuda.empty_cache()
+
+    # card vs CPU: one full-width layer at fp32 compute
+    cfg1 = dataclasses.replace(cfg, num_layers=1, compute_dtype="float32")
+    p_dev = init_params(torch.Generator(device=dev).manual_seed(21), cfg1)
+    fr = torch.from_numpy(rng.normal(size=(AUDIO_CPU_B, AUDIO_CPU_T, cfg.d_model))
+                          .astype(np.float32))
+    with torch.inference_mode():
+        lg_c, v_c, _ = prefill(tree_map(lambda a: a.cpu(), p_dev), cfg1, {"frame_embeds": fr})
+        zero(counters)
+        lg_d, v_d, _ = prefill(p_dev, cfg1, {"frame_embeds": fr.to(dev)})
+        for k, n in read(counters).items():
+            total[k] += n
+        check_on_card("hubert card vs CPU prefill")
+    errs = {"prefill": max(rel_err(lg_d.cpu(), lg_c), rel_err(v_d.cpu(), v_c))}
+    check(errs["prefill"] <= CARD_VS_CPU_TOL,
+          f"hubert card vs CPU prefill: {errs['prefill']} > {CARD_VS_CPU_TOL}")
+    cb = {"frame_embeds": fr,
+          "units": torch.from_numpy(rng.integers(0, cfg.vocab_size, (AUDIO_CPU_B, AUDIO_CPU_T))),
+          "mask": torch.from_numpy(hubert_mask(rng, AUDIO_CPU_B, AUDIO_CPU_T))}
+    res = grads_vs_cpu(build_mlm_train_step(cfg1, grads_only()), p_dev, cb, dev, counters,
+                       total, "hubert mlm step card vs CPU")
+    rec["card_vs_cpu"] = {"unit": "one layer", "batch": [AUDIO_CPU_B, AUDIO_CPU_T],
+                          "max_err": {**errs, **res["max_err"]}, "tol": CARD_VS_CPU_TOL}
+    del p_dev
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("audio", card=smi, arch=cfg.name, prefill_batch=[AUDIO_PREFILL_B, AUDIO_PREFILL_T],
+         train_batch=[AUDIO_B, AUDIO_T], launches=total, **rec)
+    return total, rec
+
+
+def train_families_phase(dev, counters, smi):
+    """A train step on the card for each family (build_seq_train_step: PPO
+    + GAE over tokens, remat; adamw(3e-4, clip_norm=1.0, master_fp32 for
+    bf16 params) as `repro`'s launch/steps.py builds it, updated in place),
+    full width, one arch at a time (TRAIN_FAMILIES: depth, batch, tokens,
+    patch embeddings first). Per arch:
+
+    - one step and TRAIN_STEPS timed steps on one fixed seeded batch (its
+      behavior log-probs and values the initial policy's own, as on-policy
+      PPO data is), each with exactly its launches (per attention layer two
+      flash forwards, dq and dk/dv; the RMSNorms of two forward passes and
+      the final norm; one scan) and every grad leaf finite, and one step
+      profiled; then the same steps from the same params under a linear
+      warmup to 3e-4 over TRAIN_WARMUP steps, after which the loss must be
+      lower than before them;
+    - card vs CPU at fp32 compute and fp32 params on one unit (the
+      `families` phase's), TRAIN_CPU_B x TRAIN_CPU_T tokens (pixtral's
+      after TRAIN_CPU_PATCHES patches): the loss and every grad leaf within
+      CARD_VS_CPU_TOL, the MoE routing slots equal.
+
+    kimi-k2's step waits for the mesh: one MoE layer is ~17 B params, which
+    with master params, moments and grads is ~270 GB."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.learners import build_seq_train_step
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.optim import adamw, linear
+    from repro_torch.utils import tree_leaves
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(23)
+    names = [c.__name__ for c in counters]
+    total = dict.fromkeys(names, 0)
+    counted = lambda fn, want, what: counted_run(counters, total, fn, want, what)
+    out = {}
+    for arch, (depth, B, T, P) in TRAIN_FAMILIES.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        La = cfg.num_layers * (cfg.family != "ssm")
+        norms = family_norms(cfg)
+        per_step = {"rmsnorm": 2 * norms - 1 if norms else 0, "flash_attention_fwd": 2 * La,
+                    "flash_attention_bwd_dq": La, "flash_attention_bwd_dkv": La,
+                    "reverse_discounted_scan_p": 1}
+        rec = {"layers": cfg.num_layers, "published_layers": get_arch(arch).num_layers,
+               "batch": [B, T], "patches": P, "launches_per_step": per_step}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(torch.Generator(device=dev).manual_seed(24), cfg)
+        rec["params"] = sum(t.numel() for t in tree_leaves(params))
+        batch = seq_batch(rng, T, cfg.vocab_size, dev, B=B)
+        if P:
+            batch["patch_embeds"] = torch.randn(
+                B, P, cfg.d_model, device=dev, generator=torch.Generator(device=dev).manual_seed(25))
+        with torch.inference_mode():
+            # on-policy data: the behavior log-probs and values are the
+            # initial policy's own, as the actor that was served them recorded
+            lg, v, _ = forward_train(params, cfg, {k: batch[k] for k in ("tokens", "patch_embeds")
+                                                   if k in batch})
+            batch["behavior_logp"] = torch.log_softmax(lg[:, -T:], -1).gather(
+                -1, batch["actions"][..., None])[..., 0]
+            batch["behavior_values"] = v[:, -T:]
+            del lg, v
+
+        def train(params, lr, what):
+            """1 + TRAIN_STEPS steps on the fixed batch from `params`, each
+            with exactly its launches and finite grads: (ms, losses, PPO
+            ratio means, each per step; the last params and state)."""
+            opt = adamw(lr, clip_norm=1.0, master_fp32=cfg.param_dtype == "bfloat16",
+                        inplace=True)
+            step = build_seq_train_step(cfg, with_grads(opt))
+            state = opt.init(params)
+            ms_each, losses, ratios = [], [], []
+            for i in range(1 + TRAIN_STEPS):
+                ms, (params, state, m) = counted(
+                    lambda: sync_wall(lambda: step(params, state, batch)), per_step, what)
+                check(all(bool(g.isfinite().all()) for g in tree_leaves(m.pop("grads"))),
+                      f"{what} {i}: non-finite grads")
+                ms_each.append(ms)
+                losses.append(m["loss"].item())
+                ratios.append(m["ratio_mean"].item())
+                del m
+            check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+            return ms_each, losses, ratios, params, state, step
+
+        # the launch optimizer (repro's launch/steps.py), timed
+        step_ms, losses, ratios, params, state, step = train(params, 3e-4, f"{arch} train step")
+        zero(counters)
+        rec["profile_step"] = profiled(lambda: step(params, state, batch), 1)
+        for k, n in read(counters).items():
+            total[k] += n
+        check_on_card(f"{arch} train step profiled")
+        rec.update(step_ms_each=step_ms[1:], step_ms_median=statistics.median(step_ms[1:]),
+                   losses=losses, ratio_mean=ratios)
+        del params, state, step
+        # descent: the same steps from the same params under a linear warmup
+        # to 3e-4 over TRAIN_WARMUP steps; the loss must fall
+        params = init_params(torch.Generator(device=dev).manual_seed(24), cfg)
+        _, wl, wr, params, state, _ = train(params, linear(0.0, 3e-4, TRAIN_WARMUP),
+                                            f"{arch} warmup train step")
+        check(wl[-1] < wl[0], f"{arch}: the loss did not fall over {TRAIN_STEPS} warmup steps, {wl}")
+        rec.update(warmup={"steps": TRAIN_WARMUP, "losses": wl, "ratio_mean": wr},
+                   peak_cuda_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+        del params, state, batch
+        torch.cuda.empty_cache()
+
+        # card vs CPU: one unit at full width, fp32 compute and params
+        cfg1 = dataclasses.replace(cfg, num_layers=len(cfg.layer_pattern),
+                                   compute_dtype="float32", param_dtype="float32")
+        p_dev = init_params(torch.Generator(device=dev).manual_seed(26), cfg1)
+        cb = seq_batch(rng, TRAIN_CPU_T, cfg.vocab_size, "cpu", B=TRAIN_CPU_B)
+        if P:
+            cb["patch_embeds"] = torch.from_numpy(
+                rng.normal(size=(TRAIN_CPU_B, TRAIN_CPU_PATCHES, cfg.d_model)).astype(np.float32))
+        res = grads_vs_cpu(build_seq_train_step(cfg1, grads_only()), p_dev, cb, dev, counters,
+                           total, f"{arch} train step card vs CPU")
+        rec["card_vs_cpu"] = {"unit": f"{cfg1.num_layers} layer(s)",
+                              "batch": [TRAIN_CPU_B, TRAIN_CPU_T],
+                              "patches": TRAIN_CPU_PATCHES if P else 0, **res}
+        del p_dev
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
+        out[arch] = rec
+        emit("train_families", card=smi, arch=arch, family=cfg.family,
+             compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype, **rec)
+    emit("train_families_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total)
     return total, out
 
 
@@ -2144,6 +2534,13 @@ def main() -> int:
     from repro_torch.utils import tree_leaves, tree_map, tree_stack
 
     # -- 1. device ----------------------------------------------------------
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Record the seconds since the last lap under `name`."""
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2157,6 +2554,8 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
+    lap("device")
+
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
@@ -2164,6 +2563,8 @@ def main() -> int:
     emit("build", seconds=build_s, nvcc_seconds=_build.build_seconds,
          sources=[str(p.relative_to(ROOT)) for p in _build.sources()],
          ptxas=ptxas_summary(_build.build_log))
+
+    lap("build")
 
     # -- 3. kernels against their plain versions ------------------------------
     def device_ms(fn, n=20):
@@ -2297,6 +2698,12 @@ def main() -> int:
             mask &= qp - kp < window
         return int(mask.sum().item())
 
+    def sdpa_computes(Tq, Tk, causal, window, cap, kv_len):
+        """Whether one SDPA call computes this attention: no softcap, no
+        tail, a window that masks nothing, causal only at Tq == Tk."""
+        return (not cap and kv_len is None and (not window or window >= Tk)
+                and (Tq == Tk or not causal))
+
     S, M = "strided", "contiguous"
     flex_seq = {}
     flash_cases = [
@@ -2353,6 +2760,13 @@ def main() -> int:
          torch.bfloat16, False, True, 1024, 0.0, None, S, "hymba prefill"),
         (DECODE_B, 32, 8, PATCHES + DECODE_T, PATCHES + DECODE_T, 128, torch.bfloat16, False,
          True, 0, 0.0, None, S, "pixtral prefill"),
+        # hubert-xlarge: 16 heads of 80, bidirectional; its train shape
+        # (AUDIO_B x AUDIO_T) in bf16, and the fp32 regime's column split
+        # (two 32-column passes and one of 16) at T = 1024
+        (AUDIO_B, 16, 16, AUDIO_T, AUDIO_T, 80, torch.bfloat16, False, False, 0, 0.0, None, S,
+         "hubert train shape"),
+        (1, 16, 16, 1024, 1024, 80, torch.float32, False, False, 0, 0.0, None, S,
+         "hubert fp32, d=80"),
     ]
     for (B, H, KV, Tq, Tk, d, dtype, mixed, causal, window, cap, kv_len, layout,
          label) in flash_cases:
@@ -2391,9 +2805,9 @@ def main() -> int:
         ms = device_ms(lambda: flash_attention_fwd(q, k, v, **kw))
         plain_ms = device_ms(lambda: attention_fwd_ref(q, k, v, **kw))
         library_ms = None
-        if causal and not window and not cap and kv_len is None and Tq == Tk:
+        if sdpa_computes(Tq, Tk, causal, window, cap, kv_len):
             library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True))
+                q, k, v, is_causal=causal, scale=d ** -0.5, enable_gqa=True))
         if label == "learner seq shape":
             flex_seq = flex_ms(q, k, v, torch.randn(q.shape, generator=gen, device=dev).to(dtype),
                                d ** -0.5, window, cap)
@@ -2414,6 +2828,42 @@ def main() -> int:
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
         results["flash_attention_fwd"].append(r)
         emit("kernel", name="flash_attention_fwd", **r)
+    # hubert's serving pass (prefill_32k, the batch cut to AUDIO_PREFILL_B):
+    # the kernel over all AUDIO_PREFILL_T frames, held against the plain
+    # version on its first and last SLICE_Q queries against every key (the
+    # attention is bidirectional, so a slice of the queries is exact; the
+    # whole plain score matrix would take 64 GiB). The plain time is the
+    # plain version run over every SLICE_Q-query slice in turn.
+    B, H, T, d, SLICE_Q = AUDIO_PREFILL_B, 16, AUDIO_PREFILL_T, 80, 1024
+    q, k, v = (torch.randn(B, T, H, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    kw = dict(scale=d ** -0.5, causal=False)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    err = 0.0
+    for s0 in (0, T - SLICE_Q):
+        ro, rlse = attention_fwd_ref(q[:, :, s0:s0 + SLICE_Q], k, v, **kw)
+        err = max(err, (o[:, :, s0:s0 + SLICE_Q].float() - ro.float()).abs().max().item(),
+                  (lse[:, :, s0:s0 + SLICE_Q] - rlse).abs().max().item())
+        del ro, rlse
+    tol = TOL["bfloat16"]
+    check(err <= tol, f"flash hubert prefill: err {err} > {tol}")
+    check(bool(torch.isfinite(o.float()).all()), "flash hubert prefill: non-finite o")
+    nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size() \
+        + lse.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * d * B * H * T * T, "bfloat16")
+    r = dict(shape=[B, H, H, T, T, d], strided=True, dtype="bfloat16", mixed=False,
+             causal=False, window=0, cap=0.0, kv_len=None, label="hubert prefill",
+             checked_queries=[[0, SLICE_Q], [T - SLICE_Q, T]], max_abs_err=err, tol=tol,
+             ms=device_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+             plain_ms=device_ms(lambda: [attention_fwd_ref(q[:, :, s0:s0 + SLICE_Q], k, v, **kw)
+                                         for s0 in range(0, T, SLICE_Q)], n=3),
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)),
+             bound_ms=b_ms, bound_by=b_by)
+    results["flash_attention_fwd"].append(r)
+    emit("kernel", name="flash_attention_fwd", **r)
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+
     for lbl in ("policy-s serving", "policy-m serving"):
         r = next(x for x in results["flash_attention_fwd"] if x["label"] == lbl)
         check(r["ms"] <= r["library_ms"],
@@ -2462,6 +2912,8 @@ def main() -> int:
         pass
     emit("kernel_edges", max_abs_err={k: e for k, (e, _) in edge.items()})
 
+    lap("kernels")
+
     # -- 3b. the learner's kernels against their plain versions ---------------
     # The delta preprocess runs in dq's prologue: its entry holds the fused
     # kernel's delta against the plain preprocess, with the fused kernel's
@@ -2495,6 +2947,29 @@ def main() -> int:
          "bf16, bidirectional, Tq != Tk"),
         (2, 4, 2, 65, 65, 32, torch.float32, True, 8, 30.0, 50, "bthd",
          "fp32, window, cap, tail"),
+        # the audio and the families' train steps: hubert's (d = 80,
+        # bidirectional; bf16 at its train shape, fp32 for the column
+        # split), and the backward at G = 16 (qwen3-moe), 8 (kimi-k2) and 5
+        # (hymba, window 1024)
+        (AUDIO_B, 16, 16, AUDIO_T, AUDIO_T, 80, torch.bfloat16, False, 0, 0.0, None, "bthd",
+         "hubert train shape"),
+        (1, 16, 16, 1024, 1024, 80, torch.float32, False, 0, 0.0, None, "bthd",
+         "hubert fp32, d=80"),
+        (4, 64, 4, 1024, 1024, 128, torch.bfloat16, True, 0, 0.0, None, "bthd",
+         "qwen3-moe train, G=16"),
+        (4, 64, 8, 1024, 1024, 128, torch.bfloat16, True, 0, 0.0, None, "bthd",
+         "kimi-k2 train, G=8"),
+        (4, 25, 5, 256, 256, 64, torch.bfloat16, True, 1024, 0.0, None, "bthd",
+         "hymba train, G=5"),
+        # the train_families phase's other attention shapes: pixtral's
+        # (PATCHES patches + 1024 tokens, G = 4) and gemma2-2b's (softcap 50;
+        # its local layers pass the 4096 window, which masks nothing here)
+        (4, 32, 8, PATCHES + 1024, PATCHES + 1024, 128, torch.bfloat16, True, 0, 0.0, None,
+         "bthd", "pixtral train, G=4"),
+        (4, 8, 4, 1024, 1024, 256, torch.bfloat16, True, 0, 50.0, None, "bthd",
+         "gemma2-2b train, global"),
+        (4, 8, 4, 1024, 1024, 256, torch.bfloat16, True, 4096, 50.0, None, "bthd",
+         "gemma2-2b train, local"),
     ]
     for (B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, layout, label) in bwd_cases:
         def make(heads, T):
@@ -2547,10 +3022,10 @@ def main() -> int:
                      device_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)),
                      lambda: attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw), None)}
         whole_bwd_ms = None
-        if causal and not window and not cap and kv_len is None and Tq == Tk:
+        if sdpa_computes(Tq, Tk, causal, window, cap, kv_len):
             # the library's whole backward (dq, dk and dv in one call)
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-            ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=d ** -0.5,
+            ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, scale=d ** -0.5,
                                                 enable_gqa=True)
             whole_bwd_ms = device_ms(lambda: torch.autograd.grad(ol, (qs, ks, vs), do,
                                                                  retain_graph=True))
@@ -2618,6 +3093,8 @@ def main() -> int:
                  library_ms=None, bound_ms=b_ms, bound_by=b_by)
         results["reverse_discounted_scan_p"].append(r)
         emit("kernel", name="reverse_discounted_scan_p", **r)
+
+    lap("kernels_bwd_scan")
 
     # -- 4. serve the policy nets through the InfServer -----------------------
     counters = (rmsnorm, flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv,
@@ -2708,6 +3185,8 @@ def main() -> int:
     for name in serve_kernels:
         check(launches["serve"][name] > 0, f"{name} was never launched on the serving path")
 
+    lap("serve")
+
     # -- 5. card vs CPU at fp32 compute ----------------------------------------
     def perturb_norms(tree, gen):
         """`tree` with every norm scale replaced by 1 + 0.1 * N(0, 1) from `gen`."""
@@ -2743,6 +3222,8 @@ def main() -> int:
             check(e <= CARD_VS_CPU_TOL, f"{arch} card vs CPU ({name}): {e} > {CARD_VS_CPU_TOL}")
         emit("card_vs_cpu", arch=arch, compute_dtype="float32", max_abs_err=errs,
              tol=CARD_VS_CPU_TOL)
+
+    lap("serve_vs_cpu")
 
     # -- 6. train: env steps and sequence steps on the card ---------------------
     # Per step, forward: 2 RMSNorms per layer and the final one, 1 attention
@@ -2809,6 +3290,8 @@ def main() -> int:
           f"learner path: plain versions ran on the card: {st}")
     emit("train_dispatch", stats=st)
 
+    lap("train")
+
     # -- 7. train step 1 on the card against the port's CPU step (fp32) --------
     learn_vs_cpu = {}
     for which, cfg in (("env", dataclasses.replace(cfg_env, compute_dtype="float32")),
@@ -2833,8 +3316,11 @@ def main() -> int:
         emit("train_card_vs_cpu", kind=which, compute_dtype="float32", max_abs_err=errs,
              tol=CARD_VS_CPU_TOL)
 
+    lap("train_vs_cpu")
+
     # -- 8. league: the learner's side of the loop on the card ------------------
     launches["league"], league_out = league_phase(dev, cfg_env, counters, smi, per_step)
+    lap("league")
 
     # -- 9. envs, actors, the quickstart loop, the runtime, a checkpoint -------
     # a policy-s forward: 2 RMSNorms per layer and the final one, 1 attention
@@ -2843,19 +3329,27 @@ def main() -> int:
     per_forward = {"rmsnorm": 2 * cfg_env.num_layers + 1,
                    "flash_attention_fwd": cfg_env.num_layers}
     envs_out = envs_phase(dev, smi)
+    lap("envs")
     launches["actors"], actors_out, theta0 = actors_phase(dev, cfg_env, counters, smi,
                                                           per_forward)
+    lap("actors")
     launches["league_loop"], loop_out, loop_learner = league_loop_phase(
         dev, cfg_env, counters, smi, per_forward, per_step, theta0)
+    lap("league_loop")
     launches["runtime"], runtime_out = runtime_phase(dev, cfg_env, counters, smi, per_forward,
                                                      per_step)
+    lap("runtime")
     checkpoint_phase(dev, loop_learner, smi)
+    lap("checkpoint")
 
     # -- 10. the league across processes: transport, multiprocess, fleet ------
     launches["transport"], transport_out = transport_phase(dev, cfg_env, counters, smi,
                                                            per_forward)
+    lap("transport")
     launches["multiprocess"], mp_out = multiprocess_phase(smi, per_forward, per_step)
+    lap("multiprocess")
     launches["fleet"], fleet_out = fleet_phase(dev, cfg_env, smi, per_forward)
+    lap("fleet")
     for path in ("actors", "league_loop", "runtime", "transport", "multiprocess", "fleet"):
         for name in ("rmsnorm", "flash_attention_fwd"):
             check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
@@ -2866,15 +3360,29 @@ def main() -> int:
 
     # -- 11. decode: prefill and KV-cache decode at full width -----------------
     launches["decode"], decode_out = decode_phase(dev, counters, smi)
+    lap("decode")
     for name in ("rmsnorm", "flash_attention_fwd"):
         check(launches["decode"][name] > 0, f"{name} was never launched on the decode path")
 
     # -- 12. the moe, ssm, hybrid and vlm families at full width -------------
     launches["families"], families_out = families_phase(dev, counters, smi)
+    lap("families")
     for name in ("rmsnorm", "flash_attention_fwd"):
         check(launches["families"][name] > 0, f"{name} was never launched on the families path")
 
-    # -- 13. summary -------------------------------------------------------------
+    # -- 13. the audio family and every family's train step ------------------
+    launches["audio"], audio_out = audio_phase(dev, counters, smi)
+    lap("audio")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        check(launches["audio"][name] > 0, f"{name} was never launched on the audio path")
+    launches["train_families"], train_families_out = train_families_phase(dev, counters, smi)
+    lap("train_families")
+    for name in SOURCES:
+        if name != "flash_attention_bwd_preprocess":
+            check(launches["train_families"][name] > 0,
+                  f"{name} was never launched on the train_families path")
+
+    # -- 14. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
@@ -2884,7 +3392,10 @@ def main() -> int:
                    "gemma2 decode step", "qwen3 decode step", "qwen3-moe prefill q-norm",
                    "qwen3-moe prefill k-norm", "kimi-k2 prefill", "hymba prefill",
                    "pixtral prefill", "kimi-k2 decode step", "hymba decode step",
-                   "pixtral decode step", "qwen3-moe prefill")
+                   "pixtral decode step", "qwen3-moe prefill", "hubert train shape",
+                   "qwen3-moe train, G=16", "kimi-k2 train, G=8", "hymba train, G=5",
+                   "hubert prefill", "pixtral train, G=4", "gemma2-2b train, global",
+                   "gemma2-2b train, local")
     per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
                        "env_step": per_step["env"].get(name, 0),
                        "seq_step": per_step["seq"].get(name, 0),
@@ -2894,7 +3405,11 @@ def main() -> int:
                            "launches_per_learner_step"].get(name, 0),
                        **{f"{unit}_{arch}": rec[f"launches_per_{unit}"].get(name, 0)
                           for arch, rec in {**decode_out, **families_out}.items()
-                          for unit in ("prefill", "step")}}
+                          for unit in ("prefill", "step")},
+                       "prefill_hubert-xlarge": audio_out["launches_per_prefill"].get(name, 0),
+                       "mlm_step_hubert-xlarge": audio_out["launches_per_step"].get(name, 0),
+                       **{f"train_step_{arch}": rec["launches_per_step"].get(name, 0)
+                          for arch, rec in train_families_out.items()}}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -2946,7 +3461,12 @@ def main() -> int:
          families={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
                        v["consistency"]["err"], v["card_vs_cpu"]["max_err"]]
                    for a, v in families_out.items()},
-         seconds=time.perf_counter() - t_start)
+         audio=[round(audio_out["prefill_ms_median"], 3), round(audio_out["step_ms_median"], 3),
+                audio_out["card_vs_cpu"]["max_err"]],
+         train_families={a: [round(v["step_ms_median"], 3), v["losses"][0], v["losses"][-1],
+                             v["card_vs_cpu"]["max_err"]["grads"]]
+                         for a, v in train_families_out.items()},
+         seconds=time.perf_counter() - t_start, phase_seconds=laps)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

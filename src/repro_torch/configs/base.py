@@ -192,7 +192,7 @@ INPUT_SHAPES = {
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 def dtype_of(name: str) -> torch.dtype:

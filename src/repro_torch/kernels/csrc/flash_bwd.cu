@@ -151,6 +151,15 @@ __device__ __forceinline__ float dot_chunk(const __nv_bfloat16* a, const __nv_bf
   return acc;
 }
 
+// Lanes that share a row in row_deltas: the largest power of two that
+// divides the row's chunks, at most a warp (10 chunks of bf16 at D = 80: 2
+// lanes of 5 chunks each).
+__host__ __device__ constexpr int row_lanes(int chunks) {
+  int w = 1;
+  while (w < 32 && chunks % (2 * w) == 0) w *= 2;
+  return w;
+}
+
 // The prologue: delta = rowsum(dO * O) of stacked rows [r0, r0 + BM) from
 // the staged O and dO tiles (pitch LD), in 16-byte chunks. W lanes share a
 // row and reduce with shuffles in a fixed order. Writes Ds[BM] (0 past the
@@ -160,14 +169,18 @@ __device__ __forceinline__ void row_deltas(const BwdParams& p, int b, int kvh, i
                                            const T* Os, const T* dOs, float* Ds) {
   constexpr int E = 16 / sizeof(T);     // elements per chunk
   constexpr int CH = D / E;             // chunks per row
-  constexpr int W = CH < 32 ? CH : 32;  // lanes per row
+  constexpr int W = row_lanes(CH);      // lanes per row
   constexpr int RPP = THREADS / W;      // rows per pass of the block
-  static_assert(BM % RPP == 0, "every lane of a warp makes the same passes");
+  constexpr int PASSES = (BM + RPP - 1) / RPP;
+  // every lane of a warp makes the same passes: whole passes, or one pass
+  // in which the warps past row BM have no row at all
+  static_assert(BM % RPP == 0 || (PASSES == 1 && BM * W % 32 == 0), "row_deltas' passes");
   const int R = p.H / p.KV * p.Tq;
   const int sub = threadIdx.x % W;
 #pragma unroll
-  for (int pass = 0; pass < BM / RPP; ++pass) {
+  for (int pass = 0; pass < PASSES; ++pass) {
     const int i = pass * RPP + threadIdx.x / W, r = r0 + i;
+    if (i >= BM) break;  // warp-uniform
     float acc = 0.f;
 #pragma unroll
     for (int m = 0; m < CH / W; ++m) {  // rows past the end are staged as zeros
@@ -223,6 +236,7 @@ __global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p)
   constexpr int THREADS = kDqBf16Threads;
   constexpr int BM = DqBf16<D>::BM, BN = DqBf16<D>::BN, LD = DqBf16<D>::LD;
   constexpr int DT = D / 8;   // dq n-tiles per warp
+  static_assert(D % 16 == 0, "k-steps of 16 columns; n-tiles taken in pairs");
   extern __shared__ float4 smem4[];
   static_assert(BM <= 2 * BN, "o is staged in the second K/V buffer");
   T* Qs = reinterpret_cast<T*>(smem4);                     // [BM][LD]
@@ -364,7 +378,8 @@ __global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p)
 // - Phase 2: the block's two halves take alternate groups of 4 keys;
 //   thread (rg, cg) of a half owns dq of rows rg + 16 i (i < 4) at columns
 //   4 cg + 32 c (64 FMAs per 8 wavefronts: 4 float4 reads of dS and 4 of
-//   K). At the end the second half's sums are added to the first's in a
+//   K); a head dim that is not a multiple of 32 (hubert's 80) ends with a
+//   pass of 16 columns that lanes cg < 4 take. At the end the second half's sums are added to the first's in a
 //   fixed order, so the result stays deterministic. Splitting the keys
 //   doubles the micro-tile (4 x 4 against 2 x 4) for one exchange per block.
 // A tile whose pairs are all live skips the per-pair masks. Larger head
@@ -386,7 +401,8 @@ __global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
   constexpr int RJ = RW / 4;   // rows per lane in phase 1
   constexpr int KI = BN / 16;  // keys per lane in phase 1
   constexpr int RI = BM / 16;  // rows per thread in phase 2
-  constexpr int CJ = D / 32;   // float4 columns per thread and row in phase 2
+  constexpr int CJ = (D + 31) / 32;  // float4 columns per thread and row in phase 2
+  static_assert(D % 16 == 0, "the last column pass takes 16 or 32 columns");
   static_assert(BM * D <= 2 * BM * LD, "phase 2's partial sums fit in the q tile");
   static_assert(BM <= 2 * BN, "o is staged in the second K/V buffer");
   extern __shared__ float4 smem4[];
@@ -403,6 +419,9 @@ __global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
   const int r1 = RW * (warp >> 1) + (lane >> 3);  // phase 1: rows r1 + 4 j
   const int half = threadIdx.x >> 7;              // phase 2: key groups 2 m + half
   const int rg = (threadIdx.x & 127) >> 3, cg = threadIdx.x & 7;  // phase 2
+  // phase 2's column pass c of this lane (c < D / 32 folds to true)
+  const bool tail_cols = 4 * cg + 32 * (CJ - 1) < D;
+  const auto has_cols = [tail_cols](int c) { return c < D / 32 || tail_cols; };
 
   stage_q_rows<float, D, BM, LD, THREADS>(p, b, kvh, r0, Qs, dOs, KVs + 2 * BN * LD);
   repro::cp_async_commit();
@@ -500,6 +519,7 @@ __global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int c = 0; c < CJ; ++c) {
+          if (!has_cols(c)) continue;
           const float4 kv = *reinterpret_cast<const float4*>(Kt + (k + u) * LD + 4 * cg + 32 * c);
 #pragma unroll
           for (int i = 0; i < RI; ++i) {
@@ -523,8 +543,9 @@ __global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int c = 0; c < CJ; ++c)
-        *reinterpret_cast<float4*>(part + (rg + 16 * i) * D + 4 * cg + 32 * c) =
-            make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
+        if (has_cols(c))
+          *reinterpret_cast<float4*>(part + (rg + 16 * i) * D + 4 * cg + 32 * c) =
+              make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
   }
   __syncthreads();
   if (half) return;
@@ -536,6 +557,7 @@ __global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
     float* qrow = dqb + (r % G) * p.sgqh + (r / G) * p.sgqt;
 #pragma unroll
     for (int c = 0; c < CJ; ++c) {
+      if (!has_cols(c)) continue;
       const int col = 4 * cg + 32 * c;
       const float4 h = *reinterpret_cast<const float4*>(part + (rg + 16 * i) * D + col);
       *reinterpret_cast<float4*>(qrow + col) =
@@ -622,6 +644,7 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
   constexpr int CW = 32;      // columns (stacked q rows) per pass over a staged tile
   constexpr int NT = CW / 8;  // S^T n-tiles per pass
   constexpr int DT = D / 8;   // dk/dv n-tiles per warp
+  static_assert(D % 16 == 0, "k-steps of 16 columns; n-tiles taken in pairs");
   extern __shared__ float4 smem4[];
   T* Ks = reinterpret_cast<T*>(smem4);  // [BN][LD]
   T* Vs = Ks + BN * LD;                 // [BN][LD]
@@ -783,7 +806,8 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
 //   shared memory.
 // - Phase 2: the block's two halves take alternate groups of 4 queries;
 //   thread (kr, cc) of a half owns dk and dv of keys kr + 16 i (i < 2) at
-//   columns 4 cc + 32 c (64 FMAs per 12 wavefronts). At the end the second
+//   columns 4 cc + 32 c (64 FMAs per 12 wavefronts), the last pass of 16
+//   columns at a head dim like 80 taken by lanes cc < 4. At the end the second
 //   half's sums are added to the first's in a fixed order, so the result
 //   stays deterministic.
 constexpr int kDkvF32Threads = 256;
@@ -801,7 +825,8 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
   constexpr int PLD = DkvF32<D>::PLD;
   constexpr int QW = BM / 4;   // queries per warp in phase 1
   constexpr int QJ = QW / 4;   // queries per lane in phase 1
-  constexpr int CJ = D / 32;   // float4 columns per thread and key in phase 2
+  constexpr int CJ = (D + 31) / 32;  // float4 columns per thread and key in phase 2
+  static_assert(D % 16 == 0, "the last column pass takes 16 or 32 columns");
   static_assert(2 * BN * D <= 4 * BM * LD, "phase 2's partial sums fit in the q tiles");
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [BN][LD]
@@ -821,6 +846,9 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
   const int q1 = QW * (warp >> 1) + (lane >> 3);   // phase 1: queries q1 + 4 j
   const int half = threadIdx.x >> 7;               // phase 2: query groups 2 m + half
   const int kr = (threadIdx.x & 127) >> 3, cc = threadIdx.x & 7;  // phase 2
+  // phase 2's column pass c of this lane (c < D / 32 folds to true)
+  const bool tail_cols = 4 * cc + 32 * (CJ - 1) < D;
+  const auto has_cols = [tail_cols](int c) { return c < D / 32 || tail_cols; };
   stage_kv_tile<float, D, BN, LD, THREADS>(p, b, kvh, blockIdx.x, Ks, Vs);
 
   int q_lo, q_hi;
@@ -905,6 +933,7 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int c = 0; c < CJ; ++c) {
+          if (!has_cols(c)) continue;
           const float4 dov = *reinterpret_cast<const float4*>(dOt + (q + u) * LD + 4 * cc + 32 * c);
           const float4 qv = *reinterpret_cast<const float4*>(Qt + (q + u) * LD + 4 * cc + 32 * c);
 #pragma unroll
@@ -933,6 +962,7 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
+        if (!has_cols(c)) continue;
         const int at = (kr + 16 * i) * D + 4 * cc + 32 * c;
         *reinterpret_cast<float4*>(part + at) =
             make_float4(dk[i][c][0], dk[i][c][1], dk[i][c][2], dk[i][c][3]);
@@ -950,6 +980,7 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
     if (j >= p.Tk) continue;
 #pragma unroll
     for (int c = 0; c < CJ; ++c) {
+      if (!has_cols(c)) continue;
       const int col = 4 * cc + 32 * c, at = (kr + 16 * i) * D + col;
       const float4 pk = *reinterpret_cast<const float4*>(part + at);
       const float4 pv = *reinterpret_cast<const float4*>(part + BN * D + at);
@@ -1008,6 +1039,7 @@ int run(bool dkv, int D, int is_bf16, const BwdParams& p, void* stream) {
   switch (D) {
     case 32: e = dkv ? launch_dkv<32>(bf16, p, s) : launch_dq<32>(bf16, p, s); break;
     case 64: e = dkv ? launch_dkv<64>(bf16, p, s) : launch_dq<64>(bf16, p, s); break;
+    case 80: e = dkv ? launch_dkv<80>(bf16, p, s) : launch_dq<80>(bf16, p, s); break;
     case 128: e = dkv ? launch_dkv<128>(bf16, p, s) : launch_dq<128>(bf16, p, s); break;
     case 256: e = dkv ? launch_dkv<256>(bf16, p, s) : launch_dq<256>(bf16, p, s); break;
     default: e = cudaErrorInvalidValue;
@@ -1019,7 +1051,7 @@ int run(bool dkv, int D, int is_bf16, const BwdParams& p, void* stream) {
 
 // q, o, dO, dq: (B, H, Tq, D); k, v: (B, KV, Tk, D); lse, delta: (B, H, Tq)
 // fp32, contiguous. Addressed through (batch, head, time) strides in
-// elements as flash_fwd, every row 16-byte aligned; D in {32, 64, 128, 256}.
+// elements as flash_fwd, every row 16-byte aligned; D in {32, 64, 80, 128, 256}.
 // Writes dq (in q's dtype) and delta = rowsum(dO * O) for every row.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* delta, void* dq,

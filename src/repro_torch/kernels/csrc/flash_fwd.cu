@@ -46,8 +46,10 @@
 //   per 8 shared loads). Row max and sum reduce over the 16 lanes that
 //   share a row (4 shuffles). P goes through shared memory into a second
 //   register-tiled product with V: thread (ty, tx) owns o columns
-//   2 tx + 32 c of its 4 rows. A tile whose pairs are all live skips the
-//   per-pair masks. At T = 4096 the 256 blocks are ~2 per SM, 16 warps.
+//   2 tx + 32 c of its 4 rows. A head dim that is not a multiple of 32
+//   (hubert's 80) ends with a pass of 16 columns that half the lanes
+//   (tx < 8) take. A tile whose pairs are all live skips the per-pair
+//   masks. At T = 4096 the 256 blocks are ~2 per SM, 16 warps.
 #include "common.cuh"
 
 namespace {
@@ -286,7 +288,11 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashParams p) {
   constexpr int BN = F32Tile<D>::BN, LD = F32Tile<D>::LD, PLD = F32Tile<D>::PLD;
   constexpr int KJ = BN / 16;  // keys per thread
-  constexpr int CJ = D / 32;   // float2 o columns per thread and row
+  constexpr int CJ = (D + 31) / 32;  // float2 o columns per thread and row
+  static_assert(D % 16 == 0, "the last column pass takes 16 or 32 columns");
+  // column pass c of this lane: every lane in the full passes, tx < 8 in a
+  // last pass of 16 (c < D / 32 folds to true when unrolled)
+  const auto has_cols = [](int c, int tx) { return c < D / 32 || 2 * tx + 32 * c < D; };
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [kBM][LD]
   float* Ks = Qs + kBM * LD;                    // [2][BN][LD]
@@ -410,6 +416,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashParams p
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int c = 0; c < CJ; ++c) {
+          if (!has_cols(c, tx)) continue;
           const float2 vv = *reinterpret_cast<const float2*>(Vt + (kk + u) * LD + 2 * tx + 32 * c);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -434,7 +441,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashParams p
     float* orow = ob + g * p.soh + t[i] * p.sot + 2 * tx;
 #pragma unroll
     for (int c = 0; c < CJ; ++c)
-      *reinterpret_cast<float2*>(orow + 32 * c) = make_float2(o[i][c][0] / safe, o[i][c][1] / safe);
+      if (has_cols(c, tx))
+        *reinterpret_cast<float2*>(orow + 32 * c) =
+            make_float2(o[i][c][0] / safe, o[i][c][1] / safe);
     if (tx == 0)
       p.lse[(static_cast<long long>(b) * p.H + kvh * G + g) * p.Tq + t[i]] =
           l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
@@ -467,7 +476,7 @@ cudaError_t launch_d(bool bf16, const FlashParams& p, cudaStream_t s) {
 // q: (B, H, Tq, D); k, v: (B, KV, Tk, D); o like q; lse: (B, H, Tq) fp32,
 // contiguous. q/k/v/o are addressed through their (batch, head, time)
 // strides in elements; the last dim is contiguous, and every row starts
-// 16-byte aligned. D in {32, 64, 128, 256}.
+// 16-byte aligned. D in {32, 64, 80, 128, 256}.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int B, int H, int KV, int Tq, int Tk, int D,
                          int sqb, int sqh, int sqt, int skb, int skh, int skt,
@@ -484,6 +493,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   switch (D) {
     case 32: e = launch_d<32>(is_bf16, p, s); break;
     case 64: e = launch_d<64>(is_bf16, p, s); break;
+    case 80: e = launch_d<80>(is_bf16, p, s); break;
     case 128: e = launch_d<128>(is_bf16, p, s); break;
     case 256: e = launch_d<256>(is_bf16, p, s); break;
     default: e = cudaErrorInvalidValue;

@@ -33,7 +33,7 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 ALIGN = 16          # bytes: one cp.async chunk
 

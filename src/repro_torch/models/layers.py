@@ -72,12 +72,18 @@ def layernorm_init(d, dtype, device=None):
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
+def wide(x):
+    """x in fp32, the precision every norm and recurrence keeps inside, or
+    as it is when it is wider (an fp64 compute run, a rounding witness)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def layernorm(p, x, eps=1e-5):
-    xf = x.float()
+    xf = wide(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    scale, bias = p["scale"].float(), p["bias"].float()
+    scale, bias = p["scale"].to(xf.dtype), p["bias"].to(xf.dtype)
     if scale.dim() == 2:
         scale, bias = _per_model(scale, x), _per_model(bias, x)
     return (y * scale + bias).to(x.dtype)

@@ -12,7 +12,8 @@ with a short causal conv in front and a silu gate.
 
 Plain PyTorch, on every device: `repro` reaches no Pallas kernel here (its
 recurrences are `lax.scan`s), so there is no TPU kernel to port. Each
-`lax.scan` is a Python loop over time with an fp32 state; a step forms
+`lax.scan` is a Python loop over time with an fp32 state (fp64 at fp64
+compute, where RWKV6 runs as a rounding witness); a step forms
 its own decay (`dA` for Mamba), so no (B, T, di, N) tensor is ever
 materialised. The causal conv is explicit taps, as in `repro`: cuDNN's
 `conv1d` would run fp32 as TF32.
@@ -82,14 +83,14 @@ def rwkv_time_mix(p, cfg, x, x_prev_init, S_init):
     H = d // hs
     x_prev = torch.cat([x_prev_init[:, None], x[:, :-1]], dim=1)
     m = _rwkv_mix(p, x, x_prev)
-    r = L.dense(p["wr"], m["r"]).reshape(B, T, H, hs).float()
-    k = L.dense(p["wk"], m["k"]).reshape(B, T, H, hs).float()
-    v = L.dense(p["wv"], m["v"]).reshape(B, T, H, hs).float()
+    r = L.wide(L.dense(p["wr"], m["r"]).reshape(B, T, H, hs))
+    k = L.wide(L.dense(p["wk"], m["k"]).reshape(B, T, H, hs))
+    v = L.wide(L.dense(p["wv"], m["v"]).reshape(B, T, H, hs))
     g = F.silu(L.dense(p["wg"], m["g"]))
-    w = torch.exp(-torch.exp(p["w_base"].float() + m["w"].float())).reshape(B, T, H, hs)
-    u = p["u"].float()
+    w = torch.exp(-torch.exp(p["w_base"].to(r.dtype) + L.wide(m["w"]))).reshape(B, T, H, hs)
+    u = p["u"].to(r.dtype)
 
-    S = S_init.float()
+    S = S_init.to(r.dtype)
     ys = []
     for t in range(T):
         y_t, S = _rwkv_head_step(r[:, t], k[:, t], v[:, t], w[:, t], u, S)
@@ -110,7 +111,8 @@ def init_rwkv_state(cfg, batch, dtype, device=None):
     d = cfg.d_model
     hs = cfg.ssm.head_size
     return (torch.zeros((batch, d), dtype=dtype, device=device),
-            torch.zeros((batch, d // hs, hs, hs), dtype=torch.float32, device=device))
+            torch.zeros((batch, d // hs, hs, hs), dtype=torch.promote_types(dtype, torch.float32),
+                        device=device))
 
 
 # -- RWKV channel mix (its FFN, also token-shifted) ---------------------------

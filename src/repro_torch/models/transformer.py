@@ -1,8 +1,8 @@
 """Transformer assembly for the assigned arch families (counterpart of
 `repro.models.transformer`): dense, moe, ssm (rwkv6), hybrid (attention
-and Mamba heads in parallel) and vlm (a dense decoder over a prefix of
-patch embeddings). The audio family (hubert, head dim 80) comes in slice
-11 and raises here.
+and Mamba heads in parallel), vlm (a dense decoder over a prefix of patch
+embeddings) and audio (hubert: an encoder-only stack over frame
+embeddings, attending bidirectionally; it has no decode step).
 
 Params keep the reference layout: the layer stack `blocks` is stacked on a
 leading repeat axis (one entry per repeat of `cfg.layer_pattern`), and
@@ -21,8 +21,9 @@ Entry points (the learner / InfServer steps of the TLeague mapping):
   prefill(params, cfg, batch)               -> (logits, values, state);
   decode_step(params, cfg, tokens, state)   -> (logits, values, state);
   init_decode_state(cfg, batch, seq_len)    -> state.
-`batch` holds `tokens` (B, T) and/or `patch_embeds` (B, P, d), which go
-first. The decode state keeps `repro`'s layout: `blocks` (and
+`batch` holds `tokens` (B, T) and/or the modality embeddings
+`patch_embeds` (B, P, d) and `frame_embeds` (B, F, d), which go first in
+that order. The decode state keeps `repro`'s layout: `blocks` (and
 `dense_prefix`) hold one cache dict per sublayer (`kv{j}`: k, v, pos,
 length; hybrid `conv{j}`, `ssm{j}`; rwkv `tm_prev`, `tm_S`, `cm_prev`),
 each leaf stacked on the leading repeat axis, and `length` (B,) is the
@@ -42,7 +43,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 GROUPS = ("dense_prefix", "blocks")        # the order the stacks run in
 
 
@@ -97,8 +98,7 @@ def _n_repeats(cfg):
 
 def _check_family(cfg):
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (audio: slice 11)")
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported")
 
 
 def _stack_units(make, n):
@@ -231,15 +231,13 @@ def _apply_unit_step(cfg, unit, x, io, window_override=0, uniform=False):
 # ===========================================================================
 
 def embed_inputs(params, cfg, batch):
-    """batch: {'tokens': (B, T) or (M, B, T) int} and/or {'patch_embeds':
-    (B, P, d)} (the vlm family's stub frontend), which goes first. Returns
-    (x, positions), positions 0..P+T-1 per row."""
-    if "frame_embeds" in batch:
-        raise NotImplementedError("frame_embeds (the audio family) come in slice 11")
+    """batch: {'tokens': (B, T) or (M, B, T) int, or None} and/or the stub
+    frontends' embeddings {'patch_embeds': (B, P, d)} (vlm) and
+    {'frame_embeds': (B, F, d)} (audio), concatenated patches, frames,
+    tokens, as `repro` does. Returns (x, positions), positions 0..P+F+T-1
+    per row."""
     cdt = dtype_of(cfg.compute_dtype)
-    parts = []
-    if "patch_embeds" in batch:
-        parts.append(batch["patch_embeds"].to(cdt))
+    parts = [batch[k].to(cdt) for k in ("patch_embeds", "frame_embeds") if k in batch]
     if batch.get("tokens") is not None:
         parts.append(L.embed(params["embed"], batch["tokens"], cdt, cfg.embed_scale))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
@@ -312,6 +310,7 @@ def forward_train(params, cfg, batch, remat=False):
 # ===========================================================================
 
 def _check_decoder(cfg):
+    """`repro`'s init_decode_state asserts the same."""
     _check_family(cfg)
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
@@ -420,8 +419,13 @@ def prefill(params, cfg, batch, *, sliding=False, reserve=64):
     is `slice(-reserve, T)`: a prompt longer than `reserve` keeps only its
     last `reserve` keys, and every earlier slot stays at pos -1, masked out
     of decode. The port keeps every prompt key, so its decode matches its
-    `forward_train` at any T."""
-    _check_decoder(cfg)
+    `forward_train` at any T.
+
+    An encoder-only config (hubert) runs its bidirectional forward (the
+    encoder's serving pass, `prefill_32k`) and builds the same caches, as
+    `repro`'s prefill does; only `init_decode_state` and `decode_step`
+    refuse it."""
+    _check_family(cfg)
     x, positions = embed_inputs(params, cfg, batch)
     B, T = x.shape[0], x.shape[1]
     cache_len = min(T, cfg.long_context_window) if sliding else T + reserve

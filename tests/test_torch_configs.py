@@ -1,8 +1,8 @@
 """The port's architecture registry against the JAX package's: the same
 names, every field of every config and of its `smoke()` variant, the same
 input shapes; `init_params` gives `repro`'s tree (keys, shapes, dtypes) for
-the moe, ssm, hybrid and vlm archs, and the family the port does not run
-yet (audio) raises."""
+the moe, ssm, hybrid, vlm and audio archs (hubert also at head dim 80, its
+published one)."""
 import dataclasses
 
 import jax
@@ -18,7 +18,6 @@ from repro_torch.configs import INPUT_SHAPES, get_arch, list_archs
 from repro_torch.models import init_params
 from repro_torch.utils import tree_flatten_with_path
 
-NOT_PORTED = ["hubert-xlarge"]
 FAMILIES = ["pixtral-12b", "rwkv6-3b", "kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "hymba-1.5b"]
 
 
@@ -40,19 +39,26 @@ def test_input_shapes_match_repro():
         k: dataclasses.asdict(v) for k, v in JAX_INPUT_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_init_params_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_params(torch.Generator().manual_seed(0), get_arch(arch).smoke())
+def _tree_matches(jcfg, tcfg):
+    want = jax.eval_shape(lambda: jax_init(jax.random.PRNGKey(0), jcfg))
+    got = init_params(torch.Generator().manual_seed(0), tcfg)
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [(jax.tree_util.keystr(p), tuple(a.shape), str(np.dtype(a.dtype))) for p, a in flat] \
+        == [(p, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for p, t in tree_flatten_with_path(got)[0]]
+
+
+@pytest.mark.parametrize("head_dim", [None, 80])
+def test_audio_init_params_tree_matches_repro(head_dim):
+    """hubert's tree (the audio family, once refused here) against
+    `repro`'s at `smoke()`, and with its published head dim of 80."""
+    kw = {"head_dim": head_dim} if head_dim else {}
+    _tree_matches(dataclasses.replace(jax_arch("hubert-xlarge").smoke(), **kw),
+                  dataclasses.replace(get_arch("hubert-xlarge").smoke(), **kw))
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_init_params_tree_matches_repro(arch):
     """Same paths, shapes and dtypes as `repro`'s init at `smoke()`
     (kimi-k2's `dense_prefix` stack included); the numbers differ."""
-    want = jax.eval_shape(lambda: jax_init(jax.random.PRNGKey(0), jax_arch(arch).smoke()))
-    got = init_params(torch.Generator().manual_seed(0), get_arch(arch).smoke())
-    flat = jax.tree_util.tree_flatten_with_path(want)[0]
-    assert [(jax.tree_util.keystr(p), tuple(a.shape), str(np.dtype(a.dtype))) for p, a in flat] \
-        == [(p, tuple(t.shape), str(t.dtype).replace("torch.", ""))
-            for p, t in tree_flatten_with_path(got)[0]]
+    _tree_matches(jax_arch(arch).smoke(), get_arch(arch).smoke())

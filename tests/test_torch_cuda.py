@@ -121,6 +121,13 @@ FLASH = [
     (1, 64, 8, 33, 33, 128, torch.float32, True, 0, 0.0, None, False),
     (2, 64, 4, 37, 37, 128, torch.bfloat16, True, 0, 0.0, None, False),
     (1, 16, 1, 45, 45, 128, torch.float32, True, 0, 0.0, None, False),
+    # head dim 80 (hubert: 16 heads of 80, bidirectional): both regimes, the
+    # fp32 one's last 16-column pass; causal, window, cap and tail too
+    (2, 16, 16, 67, 67, 80, torch.bfloat16, False, 0, 0.0, None, False),
+    (1, 16, 16, 67, 67, 80, torch.float32, False, 0, 0.0, None, False),
+    (2, 4, 2, 50, 50, 80, torch.bfloat16, True, 16, 20.0, None, False),
+    (2, 4, 2, 65, 65, 80, torch.float32, True, 8, 30.0, 50, False),
+    (2, 4, 1, 37, 65, 80, torch.bfloat16, False, 0, 0.0, None, True),
 ]
 
 
@@ -242,6 +249,26 @@ FLASH_BWD = [
         (2, 4, 2, 50, 50, True, 16, 20.0, None),
         (2, 8, 2, 65, 65, True, 0, 0.0, 60),
         (2, 4, 1, 37, 65, False, 0, 0.0, None))
+] + [
+    # head dim 80 (hubert), both regimes: bidirectional at G = 1, a window
+    # with softcap, a kv_len tail, Tq != Tk
+    (B, H, KV, Tq, Tk, 80, dtype, causal, window, cap, kv_len)
+    for dtype in (torch.bfloat16, torch.float32)
+    for (B, H, KV, Tq, Tk, causal, window, cap, kv_len) in (
+        (2, 16, 16, 67, 67, False, 0, 0.0, None),
+        (2, 4, 2, 50, 50, True, 16, 20.0, None),
+        (2, 8, 2, 65, 65, True, 0, 0.0, 60),
+        (2, 4, 1, 37, 65, False, 0, 0.0, None))
+] + [
+    # the families' groups in the backward: G = 5 (hymba, 25/5 heads of 64,
+    # windowed), G = 8 (kimi-k2, 64/8 of 128), G = 16 (qwen3-moe, 64/4; one
+    # dk/dv block does 16 heads' work); T off the tile multiples
+    (2, 25, 5, 67, 67, 64, torch.bfloat16, True, 16, 0.0, None),
+    (1, 25, 5, 37, 37, 64, torch.float32, True, 8, 0.0, None),
+    (2, 64, 8, 50, 50, 128, torch.bfloat16, True, 0, 0.0, None),
+    (1, 64, 8, 33, 33, 128, torch.float32, True, 0, 0.0, None),
+    (2, 64, 4, 37, 37, 128, torch.bfloat16, True, 0, 0.0, None),
+    (1, 16, 1, 45, 45, 128, torch.float32, True, 0, 0.0, None),
 ]
 
 

@@ -376,6 +376,13 @@ def test_init_decode_state_matches_repro(ref, arch, sliding):
     _state_close(tst, jst, "float32")
 
 
-def test_audio_family_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        init_params(torch.Generator().manual_seed(0), get_arch("hubert-xlarge").smoke())
+def test_audio_family_has_no_decode_step():
+    """hubert is encoder-only: `init_decode_state` and `decode_step` raise,
+    as `repro`'s init_decode_state asserts; its prefill runs
+    (`tests/test_torch_audio.py`)."""
+    cfg = get_arch("hubert-xlarge").smoke()
+    with pytest.raises(ValueError, match="encoder-only"):
+        init_decode_state(cfg, B, 8, device="cpu")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="encoder-only"):
+        decode_step(params, cfg, torch.zeros((B, 1), dtype=torch.long), {})

@@ -187,7 +187,7 @@ def test_flash_wrapper_rejects_bad_inputs(bad):
         flash_attention_fwd(q, k, v, **kw)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_head_dims_the_kernels_take(d):
     check_head_dim(d)
 

@@ -31,6 +31,7 @@ from repro.configs import get_arch as jax_arch
 from repro.kernels import dispatch as jax_dispatch
 from repro.learners.steps import build_env_train_step as jax_env_step
 from repro.learners.steps import build_seq_train_step as jax_seq_step
+from repro.models import forward_train as jax_forward
 from repro.models import init_params as jax_init
 from repro.optim import Optimizer as JaxOptimizer
 from repro.optim import adamw as jax_adamw
@@ -199,6 +200,37 @@ def test_optimizers_match_jax(name, kw):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=OPT_TOL, rtol=OPT_TOL)
 
 
+@pytest.mark.parametrize("kw", [dict(weight_decay=0.01, clip_norm=1.0),
+                                dict(master_fp32=True, clip_norm=1.0)],
+                         ids=["fp32", "bf16-master"])
+def test_adamw_in_place_equals_the_functional_update(kw, monkeypatch):
+    """`adamw(inplace=True)` writes into the tensors it is given and gives
+    the functional update's numbers bit for bit; slices are made small
+    here, so every leaf but the scalar is updated in several, the one
+    whose first axis is a stack of one layer too."""
+    import repro_torch.optim.optimizers as optimizers
+    monkeypatch.setattr(optimizers, "_SLICE_ELEMS", 8)
+    dtype = torch.bfloat16 if kw.get("master_fp32") else torch.float32
+    gen = torch.Generator().manual_seed(31)
+    params = {"a": torch.randn(7, 5, generator=gen).to(dtype),
+              "b": {"c": torch.randn(11, 3, generator=gen).to(dtype),
+                    "s": torch.randn((), generator=gen).to(dtype)},
+              "stack": torch.randn(1, 6, 4, generator=gen).to(dtype)}
+    fopt, iopt = adamw(1e-2, **kw), adamw(1e-2, inplace=True, **kw)
+    fp, fs = params, fopt.init(params)
+    ip, is_ = tree_map(torch.clone, params), fopt.init(params)
+    for _ in range(3):
+        grads = tree_map(lambda p: (3 * torch.randn(p.shape, generator=gen)).to(dtype), params)
+        fp, fs, fm = fopt.update(grads, fs, fp)
+        leaves = tree_leaves(ip) + tree_leaves(is_["mu"])
+        ip2, is_, im = iopt.update(grads, is_, ip)
+        assert all(a is b for a, b in zip(tree_leaves(ip2) + tree_leaves(is_["mu"]), leaves))
+        ip = ip2
+    for a, b in zip(tree_leaves((fp, fs)), tree_leaves((ip, is_))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(torch.equal(fm[k], im[k]) for k in fm)
+
+
 def test_schedules_match_jax():
     for fj, ft in ((jax_schedules.constant(0.1), schedules.constant(0.1)),
                    (jax_schedules.linear(1.0, 0.1, 10), schedules.linear(1.0, 0.1, 10)),
@@ -324,6 +356,31 @@ def test_seq_train_step_matches_jax():
     _compare_step(tm, tp, jm, jp)
 
 
+@pytest.mark.parametrize("arch,prefix", [("pixtral-12b", "patch_embeds"),
+                                         ("hubert-xlarge", "frame_embeds")])
+def test_seq_train_step_sees_the_modality_prefix(arch, prefix):
+    """PPO over tokens after a prefix of patch (vlm) or frame (audio)
+    embeddings, which the model sees first and the RL fields skip: the
+    smoke config at fp32 params and compute, the same params and batch
+    through `repro`'s step and the port's (loss, grads, the params after a
+    second step)."""
+    kw = dict(compute_dtype="float32", param_dtype="float32")
+    jcfg = dataclasses.replace(jax_arch(arch).smoke(), **kw)
+    tcfg = dataclasses.replace(get_arch(arch).smoke(), **kw)
+    rng = np.random.default_rng(28)
+    jparams = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(4), jcfg))
+    B, P, T = 2, 6, 10
+    batch = _traj(rng, B, T)
+    batch["actions"] = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    batch["behavior_logp"] = (batch["behavior_logp"] - 5.0).astype(np.float32)
+    batch["tokens"] = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    batch["discounts"] = _discounts(rng, B, T)
+    batch[prefix] = rng.normal(size=(B, P, jcfg.d_model)).astype(np.float32)
+    p1, s1, jm, jp = _jax_two_steps(lambda o: jax_seq_step(jcfg, o, jit=True), jparams, batch)
+    tp, ts, tm = _port_step(lambda o: build_seq_train_step(tcfg, o), p1, s1, batch)
+    _compare_step(tm, tp, jm, jp)
+
+
 def test_remat_changes_no_grad():
     """`remat=True` recomputes each unit's forward in the backward; the
     grads are those of the plain forward."""
@@ -342,3 +399,54 @@ def test_remat_changes_no_grad():
                         {k: torch.from_numpy(v) for k, v in batch.items()})[2])
     for k, v in _flat(out[0]["grads"]).items():
         np.testing.assert_allclose(_flat(out[1]["grads"])[k], v, atol=1e-6, rtol=0, err_msg=k)
+
+
+def test_launch_optimizer_steps_match_jax_where_the_loss_rises():
+    """Three steps of the launch optimizer (`adamw(3e-4, clip_norm=1.0)`,
+    as `repro`'s launch/steps.py builds it) on one fixed on-policy batch:
+    rwkv6 at 2 layers, d_model 1024 (16 heads of 64), vocab 4096, fp32,
+    2 x 64 tokens, the behavior log-probs and values the initial policy's
+    own. Adam's first step moves every element by about lr, which at this
+    width moves PPO's ratio by 10^2 or more, and the loss ends higher than
+    it began in `repro` as well: the port's losses and ratio means follow
+    `repro`'s step by step. rtol 1e-3: the ratios of 10^2-10^3 magnify the
+    two packages' 1e-7 grad differences (measured: 4.0e-4 on the last
+    loss, 1.7e-4 on its ratio mean)."""
+    kw = dict(d_model=1024, num_heads=16, num_kv_heads=16, d_ff=3584, vocab_size=4096,
+              num_layers=2, compute_dtype="float32", param_dtype="float32")
+    jcfg = dataclasses.replace(jax_arch("rwkv6-3b").smoke(), **kw)
+    tcfg = dataclasses.replace(get_arch("rwkv6-3b").smoke(), **kw)
+    rng = np.random.default_rng(29)
+    B, T = 2, 64
+    jparams = jax_init(jax.random.PRNGKey(5), jcfg)
+    tokens = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    actions = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    with jax_dispatch.force("interpret"):
+        lg, v, _ = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
+    logp = jax.nn.log_softmax(lg, -1)
+    batch = {"tokens": tokens, "actions": actions,
+             "behavior_logp": np.asarray(jnp.take_along_axis(logp, actions[..., None], -1)[..., 0]),
+             "behavior_values": np.asarray(v, np.float32),
+             "rewards": rng.normal(size=(B, T)).astype(np.float32),
+             "bootstrap_value": rng.normal(size=(B,)).astype(np.float32),
+             "discounts": _discounts(rng, B, T)}
+    jopt, topt = jax_adamw(LR, clip_norm=1.0), adamw(LR, clip_norm=1.0)
+    params = from_reference(jax.tree.map(np.asarray, jparams), "cpu")
+    tstep, tstate = build_seq_train_step(tcfg, topt), topt.init(params)
+    tb = {k: _t(x) for k, x in batch.items()}
+    jb = jax.tree.map(jnp.asarray, batch)
+    jstate = jopt.init(jparams)
+    jm_all, tm_all = [], []
+    with jax_dispatch.force("interpret"):
+        jstep = jax_seq_step(jcfg, jopt, jit=True)
+        for _ in range(3):
+            jparams, jstate, jm = jstep(jparams, jstate, jb)
+            params, tstate, tm = tstep(params, tstate, tb)
+            jm_all.append({k: float(jm[k]) for k in ("loss", "ratio_mean")})
+            tm_all.append({k: float(tm[k]) for k in ("loss", "ratio_mean")})
+    # in `repro`: the ratio leaves 1 by 10^2 after one step, and the loss
+    # ends above where it started (a check that the loss falls fails)
+    assert jm_all[1]["ratio_mean"] > 100.0 and jm_all[-1]["loss"] > jm_all[0]["loss"]
+    for i, (j, t) in enumerate(zip(jm_all, tm_all)):
+        for k in j:
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-3, atol=TOL, err_msg=f"step {i} {k}")

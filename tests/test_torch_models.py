@@ -122,8 +122,10 @@ def test_init_params_layout_matches_jax(kw):
 
 
 def test_non_dense_family_raises():
-    cfg = dataclasses.replace(get_arch("tleague-policy-s"), family="audio")
-    with pytest.raises(NotImplementedError):
+    """A family name the port does not know raises (every family of
+    `repro`'s configs is ported)."""
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), family="speech")
+    with pytest.raises(NotImplementedError, match="not ported"):
         init_params(torch.Generator().manual_seed(0), cfg)
 
 
