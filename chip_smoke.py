@@ -73,8 +73,9 @@ drives the port's paths on the card:
   over the gemma2 backbone, and one repeat unit card vs CPU;
 - families: the moe, ssm, hybrid and vlm families at full width, one arch
   at a time: qwen3-moe-235b-a22b (4 of 94 layers), kimi-k2-1t-a32b (its
-  dense prefix and 1 MoE layer of 61), rwkv6-3b, hymba-1.5b and
-  pixtral-12b (full depth; the decode demo for these three), prefill of
+  dense prefix and 1 MoE layer of 61), rwkv6-3b and hymba-1.5b (8 of 32
+  layers; their decode demo at full depth) and pixtral-12b (full depth,
+  with the decode demo), prefill of
   4 x 1024 tokens (pixtral's after 1024 patch embeddings; rwkv6's and
   hymba's cut to 4 x 256: their scans are loops over time) and greedy
   decode steps with exactly their launches, a step with no host sync (MoE
@@ -94,7 +95,17 @@ drives the port's paths on the card:
   layer), rwkv6 and hymba (2 layers, T = 256), pixtral (2 layers, 1,024
   patches + 1,024 tokens) and gemma2-2b (full depth, 4 x 1,024): exact
   launches, finite grads, a falling loss over 3 steps on one batch, one
-  unit card vs CPU (loss and every grad leaf).
+  unit card vs CPU (loss and every grad leaf);
+- mesh: the mesh on a (1, 1) NCCL DeviceMesh of the card
+  (`launch.mesh.make_local_mesh()`): the sharded InfServer at policy-s
+  (`repro`'s local-mesh sequence at fp32 against the unsharded server,
+  flush ms sharded and unsharded), `launch.steps.make_dryrun_step`'s train
+  step for qwen3-8b at full width (2 of 36 layers, 1 x 4,096 tokens, DTensor
+  params: loss and grads at fp32 against the unsharded step, then the
+  whole step at bf16 with adamw on the DTensors), and `moe_apply_ep` on
+  qwen3-moe's MoE layer (128 experts, 4 x 1,024 tokens) against
+  `moe_apply`. The multiprocess phase's served run is `--served
+  --sharded`, its InfServer on a (1, 1) mesh of the coordinator's card.
 
 Phase 3 and 3b also hold the flash kernels at head dim 80 (hubert's train
 shape in bf16, the fp32 regime at T = 1,024) and the backward at G = 16,
@@ -159,7 +170,9 @@ RUNTIME_MAX_S = 300.0
 # multiprocess league as `launch.train --workers W` runs it, the fleet
 TRANSPORT_SEGMENT_ROWS = 2 * ACT_E
 TRANSPORT_FLUSHES, TRANSPORT_RTT_CALLS, TRANSPORT_PULLS, TRANSPORT_PUTS = 20, 200, 10, 8
-MP_RUNS = ((2, False), (4, False), (2, True))   # (actor processes, served)
+# (actor processes, served); the served run's InfServer is mesh-sharded
+# (`--sharded`: a (1, 1) mesh of the card)
+MP_RUNS = ((2, False), (4, False), (2, True))
 MP_STEPS, MP_TIMEOUT_S = 16, 300.0
 FLEET_REPLICAS, FLEET_ROUNDS, FLEET_ROWS = 2, 50, 64
 # rows/s through the warm fleet and through one in-process InfServer,
@@ -177,17 +190,22 @@ DECODE_CPU_B, DECODE_CPU_T, DECODE_CPU_STEPS = 2, 80, 4
 CONSISTENCY_TOL = 1e-3                         # of max(1, max |logits|)
 # the families phase: qwen3-moe-235b-a22b, kimi-k2-1t-a32b (depth cut to
 # fit the card: 4 of 94 layers; the dense prefix and 1 MoE layer of 61),
-# rwkv6-3b, hymba-1.5b and pixtral-12b at full depth; full width, seeded,
-# the configs' own dtypes; DECODE_B prompts of DECODE_T tokens (pixtral's
-# after PATCHES patch embeddings; FAMILY_PROMPT's for rwkv6 and hymba),
-# FAMILY_STEPS greedy steps
-FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "kimi-k2-1t-a32b": 2, "rwkv6-3b": None,
-                "hymba-1.5b": None, "pixtral-12b": None}
+# rwkv6-3b and hymba-1.5b (depth cut to 8 of 32 layers for the script's
+# time: their host-bound loops over time cost in proportion to depth) and
+# pixtral-12b at full depth; full width, seeded, the configs' own dtypes;
+# DECODE_B prompts of DECODE_T tokens (pixtral's after PATCHES patch
+# embeddings; FAMILY_PROMPT's for rwkv6 and hymba), FAMILY_STEPS greedy
+# steps
+FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "kimi-k2-1t-a32b": 2, "rwkv6-3b": 8,
+                "hymba-1.5b": 8, "pixtral-12b": None}
 PATCHES = 1024                                 # configs/pixtral_12b.py NUM_PATCHES
 # rwkv6's and hymba's prompts are cut to 256 tokens: their scans are
 # Python loops over time (~5 eager ops per token per layer), so a 4 x 1024
 # prefill takes seconds and the phase minutes
 FAMILY_PROMPT = {"rwkv6-3b": 256, "hymba-1.5b": 256}
+# the archs whose decode demo (`launch.serve.serve`) runs at full depth
+# although the rest of their phase runs at FAMILY_DEPTH's cut
+FAMILY_DEMO = ("rwkv6-3b", "hymba-1.5b")
 FAMILY_STEPS = 16
 # decode vs forward_train for the MoE archs: a prompt short enough that no
 # choice is dropped (capacity grows with the token count, so both runs
@@ -1393,7 +1411,7 @@ def multiprocess_phase(smi, per_forward, per_step):
                "--max-steps", str(MP_STEPS), "--league-spec", str(spec_path),
                "--max-actor-restarts", "0"]
         if served:
-            cmd.append("--served")
+            cmd += ["--served", "--sharded"]
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
@@ -1441,6 +1459,11 @@ def multiprocess_phase(smi, per_forward, per_step):
             want = {x: forwards * per_forward.get(x, 0) for x in n}
             check(n == want, f"multiprocess {mode}: actor {rec['actor']} launches {n}, "
                              f"want {want} for {segs} segments")
+        if served:
+            check(coord["serving"]["sharded"] is True
+                  and coord["serving"]["mesh_shape"] == [1, 1],
+                  f"multiprocess {mode}: InfServer sharded {coord['serving']['sharded']}, "
+                  f"mesh {coord['serving']['mesh_shape']}")
         n = coord["kernels"]["launches"]
         flushes = coord["serving"]["batches_run"] if served else 0
         want = {x: flushes * per_forward.get(x, 0) for x in n}
@@ -1454,7 +1477,8 @@ def multiprocess_phase(smi, per_forward, per_step):
         wall = coord["wall_s"]
         steps = sum(r["steps"] for r in learners)
         runs[mode] = {
-            "workers": workers, "served": served, "wall_s": wall, "command_s": command_s,
+            "workers": workers, "served": served, "sharded": served,
+            "wall_s": wall, "command_s": command_s,
             "frames_reported": coord["progress"]["frames_total"],
             "frames_per_s": coord["progress"]["frames_total"] / wall,
             # the league once every learner has stepped: start-up and the
@@ -1908,11 +1932,12 @@ def family_norms(cfg):
 def families_phase(dev, counters, smi):
     """The moe, ssm, hybrid and vlm families' serving path at full width,
     one arch at a time (FAMILY_DEPTH cuts the MoE archs' depth to fit the
-    card), memory freed between archs. Per arch:
+    card, and rwkv6's and hymba's for time), memory freed between archs.
+    Per arch:
 
-    - rwkv6, hymba and pixtral (full depth): the decode demo
-      (`launch.serve.serve`, token prompts as `repro`'s demo) with exactly
-      its launches;
+    - pixtral, rwkv6 and hymba: the decode demo (`launch.serve.serve`,
+      token prompts as `repro`'s demo) at full depth (rwkv6's and hymba's
+      at FAMILY_PROMPT tokens), with exactly its launches;
     - DECODE_PREFILLS timed prefills of DECODE_B x DECODE_T tokens
       (pixtral after PATCHES seeded patch embeddings; rwkv6 and hymba at
       FAMILY_PROMPT tokens) and FAMILY_STEPS
@@ -1971,11 +1996,13 @@ def families_phase(dev, counters, smi):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-        if depth is None:                     # the user's entry point, at full depth
+        if depth is None or arch in FAMILY_DEMO:  # the user's entry point, at full depth
+            full = get_arch(arch)
+            demo_want = {"rmsnorm": (FAMILY_STEPS + 1) * family_norms(full),
+                         "flash_attention_fwd": full.num_layers * attn}
             demo = counted(lambda: serve(arch, smoke=False, batch=DECODE_B, prompt_len=prompt,
                                          new_tokens=FAMILY_STEPS, temperature=0.0, device=dev),
-                           {k: per_prefill.get(k, 0) + FAMILY_STEPS * per_step.get(k, 0)
-                            for k in names}, f"{arch} serve demo")
+                           {k: demo_want.get(k, 0) for k in names}, f"{arch} serve demo")
             check(len(demo) == FAMILY_STEPS and all(t.shape == (DECODE_B, 1) for t in demo),
                   f"{arch} serve demo: tokens")
             del demo
@@ -2492,6 +2519,249 @@ def train_families_phase(dev, counters, smi):
     return total, out
 
 
+# the mesh phase: one card is a (1, 1) mesh over ('data', 'model') (one
+# NCCL rank). qwen3-8b's train step at full width with 2 of 36 layers on
+# train_4k's length with its batch cut from 256 to 1; qwen3-moe's MoE layer
+# (128 experts, top-8) at full width on 4 x 1,024 tokens
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_TRAIN_B = "qwen3-8b", 2, 1
+MESH_TRAIN_STEPS = 3                           # timed bf16 steps, after one warm-up
+MESH_MOE_ARCH, MESH_MOE_B, MESH_MOE_T = "qwen3-moe-235b-a22b", 4, 1024
+MESH_FLUSH_ROUNDS = 20
+
+
+def mesh_phase(dev, counters, smi, per_forward):
+    """The mesh on the card, one process, a (1, 1) NCCL DeviceMesh from
+    `launch.mesh.make_local_mesh()`:
+
+    (a) the sharded InfServer at policy-s: `repro`'s local-mesh sequence (θ
+        alone, then θ and φ grouped) at fp32 within 1e-4 of the unsharded
+        server; flush ms (median of 20, 256 rows) sharded and unsharded,
+        single and grouped, each flush with exactly a forward's launches;
+    (b) `launch.steps.make_dryrun_step`'s train step for qwen3-8b at full
+        width, MESH_TRAIN_LAYERS layers, 1 x 4,096 tokens, DTensor params
+        and batch: loss and every grad leaf at fp32 compute within
+        CARD_VS_CPU_TOL of max(1, max |.|) of the unsharded
+        `build_seq_train_step` on the card; then the whole step (adamw on
+        the DTensor params and state) at bf16 compute, median of
+        MESH_TRAIN_STEPS, peak MB;
+    (c) `moe_apply_ep` on qwen3-moe's MoE
+        layer at full width, 4 x 1,024 tokens, fp32: y, aux and every grad
+        within CARD_VS_CPU_TOL of `moe_apply`'s, the routing slots equal.
+    Every run launches its kernels and no plain version. Returns
+    (launches, numbers)."""
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, InputShape, get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.infserver import InfServer
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
+    from repro_torch.launch.steps import make_dryrun_step, make_optimizer
+    from repro_torch.learners import build_seq_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models import moe
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    names = [c.__name__ for c in counters]
+    total = dict.fromkeys(names, 0)
+
+    def add(what):
+        """The launches since the last `zero`, added to the phase's total;
+        no plain version ran."""
+        got = read(counters)
+        for k, n in got.items():
+            total[k] += n
+        check_on_card(what)
+        return got
+
+    out = {}
+    mesh = make_local_mesh()
+    try:
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+              f"local mesh {tuple(mesh.shape)} on {mesh.device_type}")
+
+        # -- (a) the sharded InfServer ---------------------------------------
+        rng = np.random.default_rng(21)
+        cfg32 = dataclasses.replace(get_arch("tleague-policy-s"), compute_dtype="float32")
+        pgen = torch.Generator(device=dev).manual_seed(3)
+        theta, phi = init_params(pgen, cfg32), init_params(pgen, cfg32)
+        obs_a = rng.integers(0, cfg32.vocab_size, (5, OBS_LEN)).astype(np.int32)
+        obs_b = rng.integers(0, cfg32.vocab_size, (3, OBS_LEN)).astype(np.int32)
+
+        def sequence(m):
+            s = InfServer(cfg32, NUM_ACTIONS, max_batch=64, seed=3, mesh=m, device=dev)
+            s.register_model("theta", theta)
+            res = [s.get(s.submit(obs_a, model="theta"))]
+            s.register_model("phi", phi)
+            t1, t2 = s.submit(obs_a, model="theta"), s.submit(obs_b, model="phi")
+            s.flush()
+            return res + [s.get(t1), s.get(t2)], s.stats()
+
+        zero(counters)
+        single, _ = sequence(None)
+        add("mesh: unsharded sequence")
+        zero(counters)
+        sharded, st = sequence(mesh)
+        calls = dispatch.stats()
+        add("mesh: sharded sequence")
+        check(st["sharded"] is True and st["mesh_shape"] == [1, 1],
+              f"sharded InfServer stats {st['sharded']}, {st['mesh_shape']}")
+        check(calls.get("rmsnorm|kernel", 0) > 0 and calls.get("attention|kernel", 0) > 0,
+              f"sharded InfServer: kernel calls {calls}")
+        err = 0.0
+        for (a, lp, v), (a0, lp0, v0) in zip(sharded, single):
+            check(np.array_equal(a, a0), "sharded InfServer: actions differ")
+            err = max(err, float(np.abs(lp - lp0).max()), float(np.abs(v - v0).max()))
+        check(err <= CARD_VS_CPU_TOL, f"sharded InfServer vs unsharded: {err}")
+
+        cfg = get_arch("tleague-policy-s")
+        theta, phi = init_params(pgen, cfg), init_params(pgen, cfg)
+        flush = {}
+        for label, m in (("unsharded", None), ("sharded", mesh)):
+            server = InfServer(cfg, NUM_ACTIONS, theta, max_batch=ROWS, mesh=m, device=dev)
+            server.register_model("phi", phi)
+            per_actor = ROWS // 8
+            for kind, models in (("single", [None] * 8), ("grouped", [None] * 4 + ["phi"] * 4)):
+                lat = []
+                for i in range(1 + MESH_FLUSH_ROUNDS):      # one warm-up
+                    obs = rng.integers(0, cfg.vocab_size, (8, per_actor, OBS_LEN)).astype(np.int32)
+                    zero(counters)
+                    tickets = [server.submit(obs[j], model=models[j]) for j in range(8)]
+                    res = [server.get(t) for t in tickets]
+                    got = add(f"mesh: {label} {kind} flush")
+                    check(got == {k: per_forward.get(k, 0) for k in got},
+                          f"mesh: {label} {kind} flush launches {got}")
+                    check(all(np.isfinite(r[1]).all() and np.isfinite(r[2]).all() for r in res),
+                          f"mesh: {label} {kind} flush: non-finite results")
+                    if i:
+                        lat.append(1e3 * server.last_batch_latency_s)
+                flush[f"{label}_{kind}"] = statistics.median(lat)
+            check(server.stats()["sharded"] is (m is not None), f"mesh: {label} stats")
+        out["serve"] = {"max_abs_err": err, "flush_ms_median": flush, "rows": ROWS}
+        emit("mesh_serve", card=smi, arch="tleague-policy-s", mesh=[1, 1],
+             max_abs_err=err, tol=CARD_VS_CPU_TOL, rows_per_flush=ROWS,
+             flush_ms_median=flush, launches_per_flush=per_forward, dispatch=calls)
+        del server, theta, phi
+
+        # -- (b) the dry-run factory's train step at full width -----------------
+        INPUT_SHAPES["train_4k_b1"] = InputShape("train_4k_b1", SEQ_T, MESH_TRAIN_B, "train")
+        base = dataclasses.replace(get_arch(MESH_TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS)
+        want = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "reverse_discounted_scan_p")
+        brng = np.random.default_rng(22)
+        batch = seq_batch(brng, SEQ_T, base.vocab_size, dev, B=MESH_TRAIN_B)
+        cfg = dataclasses.replace(base, compute_dtype="float32", param_dtype="float32")
+        torch.cuda.empty_cache()
+        params = init_params(torch.Generator(device=dev).manual_seed(23), cfg)
+        built = make_dryrun_step(cfg, "train_4k_b1", mesh)
+        pshard, oshard, bshard = built["in_shardings"]
+        pd, bd = SH.distribute(params, pshard, mesh), SH.distribute(batch, bshard, mesh)
+        zero(counters)
+        loss1, _, g1 = built["fn"].value_and_grad(pd, bd)
+        n_sharded = add("mesh: sharded train step (fp32)")
+        g1 = [g.full_tensor() for _, g in SH.leaves_with_path(g1)]
+        zero(counters)
+        loss0, _, g0 = build_seq_train_step(cfg, make_optimizer(cfg)).value_and_grad(params, batch)
+        n_plain = add("mesh: unsharded train step (fp32)")
+        g0 = [g for _, g in SH.leaves_with_path(g0)]
+        for n, what in ((n_sharded, "sharded"), (n_plain, "unsharded")):
+            check(all(n[k] > 0 for k in want), f"mesh: {what} train step launches {n}")
+        # the sharded step checkpoints its heads (their gathered weights are
+        # freed after the forward), so the final norm runs once more
+        want_sharded = dict(n_plain, rmsnorm=n_plain["rmsnorm"] + 1)
+        check(n_sharded == want_sharded, f"mesh: train launches {n_sharded} vs {want_sharded}")
+        errs = {"loss": abs(loss1.item() - loss0.item()),
+                "grads": max(rel_err(a, b) for a, b in zip(g1, g0))}
+        for k, e in errs.items():
+            check(e <= CARD_VS_CPU_TOL, f"mesh: sharded train step vs unsharded ({k}): {e}")
+        del g0, g1, pd, params
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(base, compute_dtype="bfloat16", param_dtype="float32")
+        params = init_params(torch.Generator(device=dev).manual_seed(23), cfg)
+        built = make_dryrun_step(cfg, "train_4k_b1", mesh)
+        pshard, oshard, bshard = built["in_shardings"]
+        opt = make_optimizer(cfg)
+        pd = SH.distribute(params, pshard, mesh)
+        od = SH.distribute(opt.init(params), oshard, mesh)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses = [], []
+        for i in range(1 + MESH_TRAIN_STEPS):             # one warm-up
+            zero(counters)
+            ms, (pd, od, m) = sync_wall(lambda: built["fn"](pd, od, bd))
+            n = add("mesh: sharded train step (bf16)")
+            check(n == n_sharded, f"mesh: bf16 step launches {n}, want {n_sharded}")
+            losses.append(float(m["loss"].full_tensor() if SH.is_dtensor(m["loss"])
+                                else m["loss"]))
+            if i:
+                step_ms.append(ms)
+        check(all(np.isfinite(losses)), f"mesh: bf16 step losses {losses}")
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        out["train"] = {"arch": MESH_TRAIN_ARCH, "layers": MESH_TRAIN_LAYERS,
+                        "batch": MESH_TRAIN_B, "tokens": SEQ_T, "max_abs_err": errs,
+                        "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+                        "losses": losses, "peak_mb": peak_mb,
+                        "launches_per_step": n_sharded}
+        emit("mesh_train", card=smi, mesh=[1, 1], tol=CARD_VS_CPU_TOL,
+             published_layers=get_arch(MESH_TRAIN_ARCH).num_layers,
+             params=sum(t.numel() for t in tree_leaves(pd)), **out["train"])
+        del pd, od, built
+        torch.cuda.empty_cache()
+
+        # -- (c) expert-parallel MoE at full width ------------------------------
+        mcfg = dataclasses.replace(get_arch(MESH_MOE_ARCH), compute_dtype="float32",
+                                   param_dtype="float32")
+        p = moe.init_moe(torch.Generator(device=dev).manual_seed(24), mcfg, torch.float32)
+        p = tree_map(lambda t: t.requires_grad_(True), p)
+        x = torch.randn(MESH_MOE_B, MESH_MOE_T, mcfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(25))
+        e = mcfg.moe
+        N = MESH_MOE_B * MESH_MOE_T
+        cap = max(int(N * e.experts_per_token * e.capacity_factor / e.num_experts),
+                  e.experts_per_token)
+        with torch.no_grad():
+            gates = torch.softmax(x.reshape(N, -1) @ p["router"]["w"], dim=-1)
+            slots0 = moe.route_topk(gates, e.experts_per_token, cap)
+            slots1 = moe.route_local(gates, e.experts_per_token, cap, 0, e.num_experts)
+        routes_equal = bool(torch.equal(slots0[0], slots1[0])
+                            and torch.equal(slots0[2], slots1[2]))
+        check(routes_equal, "mesh: moe_apply_ep routing slots differ from moe_apply's")
+        zero(counters)
+        t0 = time.perf_counter()
+        y0, a0 = moe.moe_apply(p, mcfg, x)
+        g0 = torch.autograd.grad(y0.sum(), tree_leaves(p))
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with SH.data_parallel(mesh, ("data",)):
+            y1, a1 = moe.moe_apply_ep(p, mcfg, x, mesh)
+            loss = SH.batch_sum(y1.sum())
+        g1 = torch.autograd.grad(loss / mesh.size(), tree_leaves(p))
+        torch.cuda.synchronize()
+        ep_ms = 1e3 * (time.perf_counter() - t0)
+        add("mesh: moe_apply_ep")
+        errs = {"y": rel_err(y1, y0), "aux": abs(a1.item() - a0.item()),
+                "grads": max(rel_err(a, b) for a, b in zip(g1, g0))}
+        for k, v in errs.items():
+            check(v <= CARD_VS_CPU_TOL, f"mesh: moe_apply_ep vs moe_apply ({k}): {v}")
+        out["moe"] = {"arch": MESH_MOE_ARCH, "batch": MESH_MOE_B, "tokens": MESH_MOE_T,
+                      "experts": e.num_experts, "top_k": e.experts_per_token,
+                      "max_abs_err": errs, "routes_equal": routes_equal,
+                      "dropped": int((~slots0[2]).sum()),
+                      "fwd_bwd_ms": {"moe_apply": plain_ms, "moe_apply_ep": ep_ms}}
+        emit("mesh_moe", card=smi, mesh=[1, 1], tol=CARD_VS_CPU_TOL, **out["moe"])
+        del p, x, y0, y1, g0, g1, gates
+        torch.cuda.empty_cache()
+    finally:
+        INPUT_SHAPES.pop("train_4k_b1", None)
+        moe.set_expert_parallel(False)
+        close_local_mesh()
+    emit("mesh_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total)
+    return total, out
+
+
 def main() -> int:
     import torch
 
@@ -2971,6 +3241,7 @@ def main() -> int:
         (4, 8, 4, 1024, 1024, 256, torch.bfloat16, True, 4096, 50.0, None, "bthd",
          "gemma2-2b train, local"),
     ]
+    flex_bwd = {}
     for (B, H, KV, Tq, Tk, d, dtype, causal, window, cap, kv_len, layout, label) in bwd_cases:
         def make(heads, T):
             if layout == "bhtd":
@@ -3031,6 +3302,14 @@ def main() -> int:
                                                                  retain_graph=True))
         elif label == "learner seq shape":
             whole_bwd_ms = flex_seq.get("bwd_ms")  # phase 3's flex_attention, this shape
+        elif label.startswith("gemma2-2b train"):
+            # the softcap rules SDPA out: compiled flex_attention's backward,
+            # the cap as its score_mod. The local layers' 4096 window masks
+            # nothing at T = 1024, so both rows compute one function: timed once
+            if "gemma2_train" not in flex_bwd:
+                flex_bwd["gemma2_train"] = flex_ms(q, k, v, do, d ** -0.5, Tq, cap)
+                emit("flex_attention", label="gemma2-2b train", **flex_bwd["gemma2_train"])
+            whole_bwd_ms = flex_bwd["gemma2_train"].get("bwd_ms")
         # errors relative to max(1, max |plain|): delta, dq, max of dk and dv
         err_of = {"flash_attention_bwd_preprocess": errs["delta"],
                   "flash_attention_bwd_dq": errs["dq"],
@@ -3382,7 +3661,14 @@ def main() -> int:
             check(launches["train_families"][name] > 0,
                   f"{name} was never launched on the train_families path")
 
-    # -- 14. summary -------------------------------------------------------------
+    # -- 14. the mesh: a (1, 1) DeviceMesh of this card ---------------------------
+    launches["mesh"], mesh_out = mesh_phase(dev, counters, smi, per_forward)
+    lap("mesh")
+    for name in SOURCES:
+        if name != "flash_attention_bwd_preprocess":
+            check(launches["mesh"][name] > 0, f"{name} was never launched on the mesh path")
+
+    # -- 15. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
@@ -3409,7 +3695,10 @@ def main() -> int:
                        "prefill_hubert-xlarge": audio_out["launches_per_prefill"].get(name, 0),
                        "mlm_step_hubert-xlarge": audio_out["launches_per_step"].get(name, 0),
                        **{f"train_step_{arch}": rec["launches_per_step"].get(name, 0)
-                          for arch, rec in train_families_out.items()}}
+                          for arch, rec in train_families_out.items()},
+                       "mesh_flush_policy_s": per_forward.get(name, 0),
+                       "mesh_train_step_qwen3-8b": mesh_out["train"]["launches_per_step"].get(
+                           name, 0)}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -3466,6 +3755,12 @@ def main() -> int:
          train_families={a: [round(v["step_ms_median"], 3), v["losses"][0], v["losses"][-1],
                              v["card_vs_cpu"]["max_err"]["grads"]]
                          for a, v in train_families_out.items()},
+         mesh={"flush_ms": {k: round(v, 3) for k, v in mesh_out["serve"]["flush_ms_median"].items()},
+               "train_step_ms": round(mesh_out["train"]["step_ms_median"], 3),
+               "train_peak_mb": round(mesh_out["train"]["peak_mb"]),
+               "max_err": [mesh_out["serve"]["max_abs_err"],
+                           mesh_out["train"]["max_abs_err"]["grads"],
+                           mesh_out["moe"]["max_abs_err"]["grads"]]},
          seconds=time.perf_counter() - t_start, phase_seconds=laps)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """Distribution for the port; counterpart of `repro.distributed`: the RPC
-transport the league's processes talk over, and liveness. Sharding is
-ROADMAP queue 1 item 8 and is not here yet."""
+transport the league's processes talk over, liveness, and the sharding
+rules of the mesh (`sharding`, imported by its own name)."""
 from repro_torch.distributed.heartbeat import (BeatRegistry, Heartbeat,
                                                HeartbeatMonitor, probe)
 from repro_torch.distributed.transport import (

@@ -1,5 +1,5 @@
 """InfServer: continuous-batching inference service (§3.2); counterpart of
-`repro.infserver.server`, single-device path.
+`repro.infserver.server`.
 
 Collects observations from many Actor clients, runs ONE forward over the
 continuous batch on the card, and scatters (action, logp, value) back.
@@ -25,11 +25,26 @@ Design, as in `repro`:
 The forwards run inside `dispatch.serving()`, so `REPRO_KERNELS_INFER=bf16`
 applies to them and never to a learner's forward. Each flush uploads one
 padded observation batch and copies one result block back to the host:
-results are host numpy arrays, as `repro`'s `np.asarray` gives. `repro`'s
-mesh-sharded mode (`mesh=`) is not ported.
+results are host numpy arrays, as `repro`'s `np.asarray` gives.
+
+* **Mesh-sharded execution** (`mesh=`, a `DeviceMesh` over ('data',
+  'model'), e.g. `launch.mesh.make_local_mesh()`) — each hosted model is
+  laid out over the mesh as DTensors with the serving specs
+  (`serving_param_shardings`: the 'model' axis split, no FSDP; the grouped
+  θ+φ stack with `stacked_param_shardings`), and each flush's padded batch,
+  rounded up to a multiple of the data extent, is a DTensor over the data
+  axes (`obs_batch_sharding`/`grouped_obs_sharding`). Each rank runs the
+  forward on its rows over its param shards in a param scope (each repeat
+  unit gathered at use, the compute split over 'model':
+  `distributed/sharding.param_scope`), the logits and values are gathered
+  over the data axes, and the actions are sampled from the whole batch
+  with the server's generator, so a sharded flush gives the single-device
+  results. The flush still makes one device->host copy.
+  `mesh=None` keeps the single-device path as it was.
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -39,7 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.actors.policy import make_obs_policy
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import dispatch
+from repro_torch.rl.distributions import categorical_logp, categorical_sample
 from repro_torch.utils import resolve_device, tree_map, tree_stack
 
 _DEFAULT = "__default__"
@@ -72,11 +89,12 @@ class Ticket:
 
 class InfServer:
     def __init__(self, cfg, num_actions: int, params=None, *, device=None,
-                 max_batch: int = 256, seed: int = 0,
+                 max_batch: int = 256, seed: int = 0, mesh=None,
                  ticket_ttl_flushes: int = 512):
         """`device` defaults to CUDA and raises where there is none; the CPU
         tests pass device="cpu". Sampling draws from a `torch.Generator` on
-        that device seeded with `seed`.
+        that device seeded with `seed`. `mesh` switches on sharded execution
+        (see the module's docstring); it must live on `device`'s type.
 
         `ticket_ttl_flushes` bounds result retention: a resolved ticket
         whose owner hasn't collected it within that many subsequent
@@ -86,6 +104,11 @@ class InfServer:
         self.device = resolve_device(device)
         self.policy = make_obs_policy(cfg, num_actions)
         self.max_batch = max_batch
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device_type}, server on {self.device}")
+        self._param_specs = None         # lazy: from the first model's shapes
+        self._stacked_specs = None
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         # one reentrant lock serializes registry mutation, queueing and
         # flushing (`get` may re-enter `flush`, hence reentrant)
@@ -131,8 +154,39 @@ class InfServer:
 
     def _place(self, params):
         """Params on the server's device (tensors already there are hosted
-        live, as `repro` hosts its pytrees; numpy leaves are uploaded)."""
-        return tree_map(lambda a: torch.as_tensor(a, device=self.device), params)
+        live, as `repro` hosts its pytrees; numpy leaves are uploaded). In
+        sharded mode they are laid out over the mesh with the serving specs
+        (computed once from the first model's shapes: every route hosts the
+        same arch)."""
+        params = tree_map(lambda a: torch.as_tensor(a, device=self.device), params)
+        if self.mesh is None:
+            return params
+        if self._param_specs is None:
+            self._param_specs = SH.serving_param_shardings(params, self.cfg, self.mesh)
+            self._stacked_specs = SH.stacked_param_shardings(self._param_specs, self.mesh)
+        return SH.distribute(params, self._param_specs, self.mesh)
+
+    def _pad_rows(self, rows: int) -> int:
+        """Padded batch size for `rows` real rows: the power-of-two bucket,
+        rounded up in sharded mode to a multiple of the mesh's data extent,
+        so the batch dim always divides for the data-parallel layout."""
+        s = _bucket(rows)
+        if self.mesh is not None:
+            d = math.prod(SH.mesh_sizes(self.mesh)[a] for a in SH.data_axes(self.mesh))
+            s = -(-s // d) * d
+        return s
+
+    def _place_obs(self, obs: np.ndarray, grouped: bool):
+        """A flush batch on the device, as a DTensor over the data axes in
+        sharded mode (rows of (S, L), or the S of a grouped (M, S, L))."""
+        tokens = torch.from_numpy(obs).to(self.device, torch.long)
+        if self.mesh is None:
+            return tokens
+        from torch.distributed.tensor import distribute_tensor
+        spec = (SH.grouped_obs_sharding(self.mesh, obs.shape[1]) if grouped
+                else SH.obs_batch_sharding(self.mesh, obs.shape[0]))
+        spec = spec + (None,) * (obs.ndim - len(spec))
+        return distribute_tensor(tokens, self.mesh, SH.placements(spec, self.mesh))
 
     def register_model(self, key: Hashable, params,
                        content_hash: Optional[str] = None,
@@ -271,11 +325,25 @@ class InfServer:
                 self._result_born.pop(tid, None)
                 self.tickets_expired += 1
 
-    def _forward(self, params, obs: np.ndarray):
+    def _forward(self, params, obs: np.ndarray, grouped: bool = False):
         """Upload the padded batch, act, and copy (a, logp, v) back to the
         host as one block (actions ride as fp32, exact below 2**24)."""
-        tokens = torch.from_numpy(obs).to(self.device, torch.long)
-        a, logp, v = self.policy.act(params, self.gen, tokens)
+        tokens = self._place_obs(obs, grouped)
+        if self.mesh is None:
+            a, logp, v = self.policy.act(params, self.gen, tokens)
+        else:
+            # this rank's rows over its param shards; the logits and values
+            # of every data rank, then one draw over the batch
+            row = 1 if grouped else 0
+            axes = [a for a in SH.data_axes(self.mesh)
+                    if tokens.placements[self.mesh.mesh_dim_names.index(a)].is_shard()]
+            local, specs = SH.local_params(params, self.mesh)
+            with SH.data_parallel(self.mesh, axes), \
+                    SH.param_scope(self.mesh, specs, self.cfg):
+                lg, v = self.policy.logits_values(local, SH.local_rows(tokens))
+            lg, v = (SH.all_gather(t, row, self.mesh, axes) for t in (lg, v))
+            a = categorical_sample(self.gen, lg)
+            logp = categorical_logp(lg, a)
         out = torch.stack([a.float(), logp.float(), v.float()], dim=-1).cpu().numpy()
         return out[..., 0].astype(np.int32), out[..., 1], out[..., 2]
 
@@ -284,7 +352,7 @@ class InfServer:
         sizes = [o.shape[0] for _, o in items]
         rows = sum(sizes)
         big = np.concatenate([o for _, o in items], axis=0)
-        pad = _bucket(rows) - rows
+        pad = self._pad_rows(rows) - rows
         if pad:
             big = np.concatenate([big, np.zeros((pad,) + big.shape[1:],
                                                 big.dtype)], axis=0)
@@ -298,12 +366,12 @@ class InfServer:
         per_model = [np.concatenate([o for _, o in groups[k]], axis=0)
                      for k in keys]
         rows = [m.shape[0] for m in per_model]
-        S = _bucket(max(rows))
+        S = self._pad_rows(max(rows))
         obs_mat = np.zeros((len(keys), S) + per_model[0].shape[1:],
                            per_model[0].dtype)
         for m, sub in enumerate(per_model):
             obs_mat[m, :sub.shape[0]] = sub
-        a, logp, v = self._forward(self._stacked_params(keys), obs_mat)
+        a, logp, v = self._forward(self._stacked_params(keys), obs_mat, grouped=True)
         for m, k in enumerate(keys):
             tickets = [t for t, _ in groups[k]]
             sizes = [o.shape[0] for _, o in groups[k]]
@@ -317,11 +385,22 @@ class InfServer:
         cache_key = tuple((k, self._versions[k]) for k in keys)
         hit = self._stack_cache.get(cache_key)
         if hit is None:
-            hit = tree_stack([self._models[k] for k in keys])
+            hit = (tree_stack([self._models[k] for k in keys]) if self.mesh is None
+                   else self._stack_sharded([self._models[k] for k in keys]))
             while len(self._stack_cache) >= 8:     # bound without thrashing
                 self._stack_cache.pop(next(iter(self._stack_cache)))
             self._stack_cache[cache_key] = hit
         return hit
+
+    def _stack_sharded(self, members) -> Any:
+        """The (M, ...) stack of DTensor trees: each rank stacks its own
+        shards, laid out by the stacked specs (M unsharded)."""
+        from torch.distributed.tensor import DTensor
+        stacked = tree_stack([tree_map(lambda t: t.to_local(), m) for m in members])
+        flat = SH.spec_items(self._stacked_specs)
+        return SH.map_with_path(
+            lambda name, t: DTensor.from_local(t, self.mesh, SH.placements(flat[name], self.mesh),
+                                               run_check=False), stacked)
 
     def _scatter(self, tickets, sizes, a, logp, v) -> None:
         ofs = 0
@@ -388,8 +467,9 @@ class InfServer:
             "queue_depth": self.queue_depth,
             "results_held": len(self._results),
             "tickets_expired": self.tickets_expired,
-            "sharded": False,
-            "mesh_shape": None,
+            "sharded": self.mesh is not None,
+            "mesh_shape": (list(SH.mesh_sizes(self.mesh).values())
+                           if self.mesh is not None else None),
             "infer_mode": os.environ.get("REPRO_KERNELS_INFER") or None,
             # per-call routing counts of the port's dispatch (a misrouted
             # reference tier shows up here)

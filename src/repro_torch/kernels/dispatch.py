@@ -19,6 +19,13 @@ bf16 before p.V, fp32 accumulation) and returns in the caller's dtype.
 Outside a serving scope the flag is inert, so a learner's forward never
 picks it up.
 
+Shape-only evaluation (`abstract()`): inside that scope (per thread) meta
+tensors resolve to the ``meta`` tier and each op runs its plain version,
+which on meta tensors computes shapes and dtypes and nothing else; the
+dry-run (`launch/dryrun.py`) evaluates steps and counts their FLOPs so, as
+`jax.eval_shape` does. Outside it a meta tensor raises, as any device but
+CUDA and the CPU does.
+
 Every call is counted: ``stats()`` returns ``{"op|tier|detail": count}``.
 The port runs eagerly, so these are per-call counts, one per executed op;
 `repro` counts per trace, once per compilation. A forward that
@@ -40,8 +47,11 @@ from contextlib import contextmanager
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention as _flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.vtrace_scan.ops import reverse_discounted_scan as _reverse_scan
+from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
 
 INFER_MODES = ("bf16",)
 
@@ -61,7 +71,24 @@ def resolve(x: torch.Tensor) -> str:
         return "kernel"
     if x.device.type == "cpu":
         return "reference"
+    if x.device.type == "meta" and getattr(_abstract, "active", False):
+        return "meta"
     raise ValueError(f"dispatch: unsupported device {x.device}")
+
+
+# shape-only evaluation is per-thread too
+_abstract = threading.local()
+
+
+@contextmanager
+def abstract():
+    """Meta tensors run the plain versions (shapes only) inside this scope."""
+    prev = getattr(_abstract, "active", False)
+    _abstract.active = True
+    try:
+        yield
+    finally:
+        _abstract.active = prev
 
 
 # -- inference-only precision --------------------------------------------------
@@ -111,7 +138,10 @@ def stats(reset: bool = False) -> dict:
 def rmsnorm(x, w, *, eps: float = 1e-6):
     """Fused RMSNorm over the last axis. x: (..., d); w: (d,), or (M, d)
     with x's leading axis M."""
-    note("rmsnorm", resolve(x))
+    tier = resolve(x)
+    note("rmsnorm", tier)
+    if tier == "meta":
+        return rmsnorm_ref(x, w, eps)
     return _rmsnorm(x, w, eps=eps)
 
 
@@ -122,7 +152,11 @@ def attention(q, k, v, *, scale, causal=True, window=0, cap=0.0):
     models/attention.chunked_attend); the kernel reads them through their
     strides. Returns (B, H, Tq, d) in q's dtype."""
     mixed = infer_mode() == "bf16"
-    note("attention", resolve(q), ("bf16",) if mixed else ())
+    tier = resolve(q)
+    note("attention", tier, ("bf16",) if mixed else ())
+    if tier == "meta":
+        return attention_fwd_ref(q, k, v, scale=scale, causal=causal, window=window,
+                                 cap=cap, mixed=mixed)[0]
     if not mixed:
         return _flash_attention(q, k, v, scale=scale, causal=causal,
                                 window=window, cap=cap)
@@ -136,5 +170,10 @@ def reverse_scan(deltas, decays, init=None):
     """y_t = delta_t + decay_t * y_{t+1}, y_T = init (zeros if None).
     (B, T) -> (B, T) fp32: the one primitive behind GAE, TD(lambda),
     discounted returns and the V-trace correction sum."""
-    note("reverse_scan", resolve(deltas))
+    tier = resolve(deltas)
+    note("reverse_scan", tier)
+    if tier == "meta":
+        if init is None:
+            init = deltas.new_zeros(deltas.shape[:1], dtype=torch.float32)
+        return reverse_discounted_scan_ref(deltas, decays, init)
     return _reverse_scan(deltas, decays, init)

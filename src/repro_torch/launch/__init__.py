@@ -7,7 +7,9 @@
   serve       - `python -m repro_torch.launch.serve`: a replica, a
                 gateway, or a local fleet behind one.
   k8s         - renders the multiprocess league as k8s objects.
-
-`repro`'s mesh, step, spec and dry-run modules (and the decode demo) are
-ROADMAP queue 1 items 8 and 9.
+  mesh        - the production meshes (shape only) and the local DeviceMesh.
+  specs       - meta-tensor input specs per (arch, input shape).
+  steps       - the dry-run step factory, sharded on a DeviceMesh.
+  dryrun      - `python -m repro_torch.launch.dryrun`: per-device bytes and
+                FLOPs of every (arch x shape) on the production meshes.
 """

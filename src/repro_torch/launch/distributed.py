@@ -45,7 +45,9 @@ through `_PlacedPool` (a NotModified pull then uploads nothing), and an
 InfServer uploads the routes it is sent. Every role's result carries its
 process's kernel launch counts (`kernel_report`), and the CLI prints it as
 one JSON line, so a caller can hold each process to exact counts.
-`sharded` is ROADMAP queue 1 item 8 and raises.
+`sharded` lays the served InfServer out over a mesh of this process's card
+(`_build_mesh`): its own process group of one, torn down when the role
+stops.
 """
 from __future__ import annotations
 
@@ -276,11 +278,19 @@ def _advertised(address: str) -> str:
     return address
 
 
-def _no_sharding(sharded: bool) -> None:
-    if sharded:
-        raise NotImplementedError(
-            "a mesh-sharded InfServer (--sharded) is ROADMAP queue 1 item 8 "
-            "(launch/mesh.py, distributed/sharding.py) and is not ported yet")
+def _build_mesh(sharded: bool, device):
+    """The served InfServer's mesh: None, or with `sharded` the local mesh
+    on `device` over this process's own process group of one."""
+    if not sharded:
+        return None
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(device)
+
+
+def _close_mesh(mesh) -> None:
+    if mesh is not None:
+        from repro_torch.launch.mesh import close_local_mesh
+        close_local_mesh()
 
 
 def kernel_report(device) -> dict:
@@ -375,95 +385,98 @@ def run_coordinator(spec, *, env_name: str = "rps",
     from repro_torch.league.runtime import role_params
     from repro_torch.utils.host import to_host
 
-    _no_sharding(sharded)
     dev = resolve_device(device)
     env = make_env(env_name, device=dev)
     cfg = get_arch(arch)
     seeds = to_host([role_params(cfg, seed, i, dev) for i in range(len(spec))])
     league = install_roles(spec, seeds.__getitem__, pbt=pbt, seed=seed,
                            lease_ttl_s=lease_ttl_s)
-    inf_server = None
-    if served:
-        inf_server = InfServer(cfg, env.spec.num_actions, seed=seed + 7919,
-                               max_batch=max(64, 16 * spec.num_actors_total),
-                               device=dev)
-    ctrl = Ctrl()
-    # the beater thread is the liveness signal: it advances even when the
-    # stop-condition loop below is busy, and stops only with the process
-    ctrl.heartbeat.start_beating(_HEARTBEAT_INTERVAL_S)
-    if fault_plan is None:
-        fault_plan = FaultPlan.from_env()
-        if fault_plan is not None and verbose:
-            print(f"[coordinator] fault plan armed: {fault_plan.to_json()}",
-                  flush=True)
-    host, port = parse_addr(bind)
-    server = serve_league(league, inf_server, extra={"ctrl": ctrl},
-                          host=host, port=port, fault_plan=fault_plan)
-    reaper_stop = threading.Event()
-
-    def _reap_loop():
-        while not reaper_stop.wait(_REAP_INTERVAL_S):
-            alive, stale = ctrl.beats.split(actor_stale_s)
-            for actor_id in alive:
-                league.touch_actor(actor_id)
-            reaped = league.reap_leases(dead_actors=stale)
-            if reaped and verbose:
-                print(f"[coordinator] reaped {len(reaped)} lease(s) "
-                      f"(stale actors: {stale})", flush=True)
-
-    reaper = None
-    if lease_ttl_s is not None:
-        reaper = threading.Thread(target=_reap_loop, name="lease-reaper",
-                                  daemon=True)
-        reaper.start()
-    if inf_server is not None:
-        ctrl.register_endpoint("inf/shared", _advertised(server.address))
-    if on_bound is not None:
-        on_bound(server.address)
-    if verbose:
-        print(f"[coordinator] serving league at {server.address} "
-              f"(roles: {[r.name for r in spec]})", flush=True)
-    t0 = time.monotonic()
-    warm = None          # (s, progress) once every role's learner has stepped
+    mesh = _build_mesh(served and sharded, dev)
     try:
-        while not ctrl.should_stop():
-            if max_seconds is not None and time.monotonic() - t0 >= max_seconds:
-                break
-            prog = ctrl.progress()
-            steps = prog["learner_steps"]
-            stepped = len(steps) == len(spec)
-            if warm is None and stepped and all(s >= 1 for s in steps.values()):
-                warm = (time.monotonic() - t0, prog)
-            if (max_steps_per_role is not None and stepped
-                    and all(s >= max_steps_per_role for s in steps.values())):
-                break
-            time.sleep(_POLL_S)
-        end = (time.monotonic() - t0, ctrl.progress())
-        ctrl.stop()
-        time.sleep(1.0)          # let workers observe the flag and detach
-        report = {
-            "wall_s": round(time.monotonic() - t0, 3),
-            "progress": ctrl.progress(),
-            "after_first_steps": _window(warm, end),
-            "league": league.league_state(),
-            "leases": league.lease_state(),
-            "faults": fault_plan.stats() if fault_plan is not None else None,
-            "serving": inf_server.stats() if inf_server is not None else None,
-            "kernels": kernel_report(dev),
-        }
+        inf_server = None
+        if served:
+            inf_server = InfServer(cfg, env.spec.num_actions, seed=seed + 7919,
+                                   max_batch=max(64, 16 * spec.num_actors_total),
+                                   device=dev, mesh=mesh)
+        ctrl = Ctrl()
+        # the beater thread is the liveness signal: it advances even when the
+        # stop-condition loop below is busy, and stops only with the process
+        ctrl.heartbeat.start_beating(_HEARTBEAT_INTERVAL_S)
+        if fault_plan is None:
+            fault_plan = FaultPlan.from_env()
+            if fault_plan is not None and verbose:
+                print(f"[coordinator] fault plan armed: {fault_plan.to_json()}",
+                      flush=True)
+        host, port = parse_addr(bind)
+        server = serve_league(league, inf_server, extra={"ctrl": ctrl},
+                              host=host, port=port, fault_plan=fault_plan)
+        reaper_stop = threading.Event()
+
+        def _reap_loop():
+            while not reaper_stop.wait(_REAP_INTERVAL_S):
+                alive, stale = ctrl.beats.split(actor_stale_s)
+                for actor_id in alive:
+                    league.touch_actor(actor_id)
+                reaped = league.reap_leases(dead_actors=stale)
+                if reaped and verbose:
+                    print(f"[coordinator] reaped {len(reaped)} lease(s) "
+                          f"(stale actors: {stale})", flush=True)
+
+        reaper = None
+        if lease_ttl_s is not None:
+            reaper = threading.Thread(target=_reap_loop, name="lease-reaper",
+                                      daemon=True)
+            reaper.start()
+        if inf_server is not None:
+            ctrl.register_endpoint("inf/shared", _advertised(server.address))
+        if on_bound is not None:
+            on_bound(server.address)
         if verbose:
-            print(f"[coordinator] done: {json.dumps(report['progress'])}",
-                  flush=True)
-            print(f"[coordinator] leases: {json.dumps(report['leases'])}",
-                  flush=True)
-        return report
+            print(f"[coordinator] serving league at {server.address} "
+                  f"(roles: {[r.name for r in spec]})", flush=True)
+        t0 = time.monotonic()
+        warm = None          # (s, progress) once every role's learner has stepped
+        try:
+            while not ctrl.should_stop():
+                if max_seconds is not None and time.monotonic() - t0 >= max_seconds:
+                    break
+                prog = ctrl.progress()
+                steps = prog["learner_steps"]
+                stepped = len(steps) == len(spec)
+                if warm is None and stepped and all(s >= 1 for s in steps.values()):
+                    warm = (time.monotonic() - t0, prog)
+                if (max_steps_per_role is not None and stepped
+                        and all(s >= max_steps_per_role for s in steps.values())):
+                    break
+                time.sleep(_POLL_S)
+            end = (time.monotonic() - t0, ctrl.progress())
+            ctrl.stop()
+            time.sleep(1.0)          # let workers observe the flag and detach
+            report = {
+                "wall_s": round(time.monotonic() - t0, 3),
+                "progress": ctrl.progress(),
+                "after_first_steps": _window(warm, end),
+                "league": league.league_state(),
+                "leases": league.lease_state(),
+                "faults": fault_plan.stats() if fault_plan is not None else None,
+                "serving": inf_server.stats() if inf_server is not None else None,
+                "kernels": kernel_report(dev),
+            }
+            if verbose:
+                print(f"[coordinator] done: {json.dumps(report['progress'])}",
+                      flush=True)
+                print(f"[coordinator] leases: {json.dumps(report['leases'])}",
+                      flush=True)
+            return report
+        finally:
+            ctrl.stop()
+            reaper_stop.set()
+            if reaper is not None:
+                reaper.join(timeout=5.0)
+            ctrl.heartbeat.stop_beating()
+            server.close()
     finally:
-        ctrl.stop()
-        reaper_stop.set()
-        if reaper is not None:
-            reaper.join(timeout=5.0)
-        ctrl.heartbeat.stop_beating()
-        server.close()
+        _close_mesh(mesh)
 
 
 # -- learner -----------------------------------------------------------------
@@ -746,9 +759,10 @@ def run_infserver(connect: str, *, env_name: str = "rps",
                   heartbeat_timeout_s: float = DEFAULT_HEARTBEAT_TIMEOUT_S,
                   verbose: bool = True, device=None) -> dict:
     """A standalone serving process: host the grouped θ+φ forward on
-    `device` and register as the shared `inf/shared` endpoint (`sharded`
-    is ROADMAP queue 1 item 8 and raises). Routes are installed lazily by
-    served Actors (`update_params`/`ensure_model` over RPC).
+    `device` (with `sharded`, over a mesh of this process's card,
+    `_build_mesh`) and register as the shared `inf/shared` endpoint.
+    Routes are installed lazily by served Actors
+    (`update_params`/`ensure_model` over RPC).
 
     `advertise` overrides the registered address. REQUIRED for replicated
     deployments: N replicas each registering their own pod hostname under
@@ -760,31 +774,34 @@ def run_infserver(connect: str, *, env_name: str = "rps",
     from repro_torch.envs import make_env
     from repro_torch.infserver import InfServer
 
-    _no_sharding(sharded)
     dev = resolve_device(device)
     env = make_env(env_name, device=dev)
     cfg = get_arch(arch)
-    server = InfServer(cfg, env.spec.num_actions, seed=seed,
-                       max_batch=max_batch, device=dev)
-    ctrl = _ctrl_client(connect)
-    coord_dead = threading.Event()
-    monitor = _start_monitor(connect, heartbeat_timeout_s, coord_dead, [ctrl])
-    host, port = parse_addr(bind)
-    rpc = RpcServer({"inf": InfServerBackend(server)},
-                    host=host, port=port).start()
+    mesh = _build_mesh(sharded, dev)
     try:
-        ctrl.call("ctrl.register_endpoint", "inf/shared",
-                  advertise or _advertised(rpc.address))
-        if verbose:
-            print(f"[infserver] serving at {rpc.address}", flush=True)
-        while not coord_dead.is_set() and not ctrl.call("ctrl.should_stop"):
-            time.sleep(_POLL_S)
-    except TransportError:
-        pass                         # coordinator gone == shutdown signal
+        server = InfServer(cfg, env.spec.num_actions, seed=seed,
+                           max_batch=max_batch, device=dev, mesh=mesh)
+        ctrl = _ctrl_client(connect)
+        coord_dead = threading.Event()
+        monitor = _start_monitor(connect, heartbeat_timeout_s, coord_dead, [ctrl])
+        host, port = parse_addr(bind)
+        rpc = RpcServer({"inf": InfServerBackend(server)},
+                        host=host, port=port).start()
+        try:
+            ctrl.call("ctrl.register_endpoint", "inf/shared",
+                      advertise or _advertised(rpc.address))
+            if verbose:
+                print(f"[infserver] serving at {rpc.address}", flush=True)
+            while not coord_dead.is_set() and not ctrl.call("ctrl.should_stop"):
+                time.sleep(_POLL_S)
+        except TransportError:
+            pass                         # coordinator gone == shutdown signal
+        finally:
+            monitor.stop()
+            rpc.close()
+        return {**server.stats(), "kernels": kernel_report(dev)}
     finally:
-        monitor.stop()
-        rpc.close()
-    return {**server.stats(), "kernels": kernel_report(dev)}
+        _close_mesh(mesh)
 
 
 # -- pool read replica --------------------------------------------------------
@@ -883,7 +900,6 @@ def run_multiprocess(spec, *, workers: int, env_name: str = "rps",
     assert workers >= 1, "--workers needs at least one actor process"
     assert max_seconds is not None or max_steps_per_role is not None, \
         "--workers needs a stop condition (--max-seconds / --max-steps)"
-    _no_sharding(sharded)
     dev = resolve_device(device)
     ctrl_box: Dict[str, object] = {}
     addr_ready = threading.Event()

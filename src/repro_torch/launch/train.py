@@ -23,7 +23,8 @@ Three execution modes:
     alternatively run each role yourself with `--role
     {coordinator,learner,actor,infserver,pool-replica} --connect
     host:port`. Add `--served` for a shared InfServer on the
-    coordinator's card (`--sharded` is ROADMAP queue 1 item 8 and raises).
+    coordinator's card (`--sharded` lays it out over a (1, 1) mesh of that
+    card: `launch/mesh.make_local_mesh`).
     Each role process prints its result, with its kernel launch counts,
     as one JSON line.
 
@@ -343,8 +344,7 @@ def main():
                          "load-balance and restarts keep the address)")
     ap.add_argument("--sharded", action="store_true",
                     help="with --served: shard the InfServer's grouped "
-                         "forward over a mesh (ROADMAP queue 1 item 8: "
-                         "raises NotImplementedError in the port)")
+                         "forward over the local ('data','model') mesh")
     ap.add_argument("--heartbeat-timeout", type=float, default=30.0,
                     help="worker roles: seconds without a coordinator "
                          "heartbeat advance before this process treats "

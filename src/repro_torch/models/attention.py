@@ -13,6 +13,12 @@ fallback: `repro` computes decode attention outside any Pallas kernel too
 (its `decode_attention` calls `_attend` directly, never
 `dispatch.attention`), so there is no TPU kernel to port here.
 
+Tensor parallelism: under a mesh scope a rank may hold a slice of the
+heads (`distributed/sharding._Params.slice_of`): wq's columns for H/M
+query heads, wk's and wv's for the key and value heads those read, and
+wo's rows for them. The head counts are read from the weights, and the
+output projection's partial sums are added over 'model'.
+
 Model axis: with params stacked on a leading model axis M, activations are
 (M, B, T, d); the projections are batched matmuls and attention folds M
 into the batch, since the models share no keys. Decode has no model axis
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 
@@ -42,11 +49,13 @@ def init_attention(gen, cfg, dtype):
 
 
 def _project_qkv(p, cfg, x, positions):
-    """x: (..., T, d) -> q (..., T, H, hd), k and v (..., T, KV, hd)."""
+    """x: (..., T, d) -> q (..., T, H, hd), k and v (..., T, KV, hd); H and
+    KV as many heads as the weights hold (a slice under tensor
+    parallelism)."""
     lead = x.shape[:-1]
-    q = L.dense(p["wq"], x).reshape(*lead, cfg.num_heads, cfg.head_dim)
-    k = L.dense(p["wk"], x).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
-    v = L.dense(p["wv"], x).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+    q = L.dense(p["wq"], x).reshape(*lead, -1, cfg.head_dim)
+    k = L.dense(p["wk"], x).reshape(*lead, -1, cfg.head_dim)
+    v = L.dense(p["wv"], x).reshape(*lead, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm(p["q_norm"], q)
         k = L.rmsnorm(p["k_norm"], k)
@@ -83,8 +92,15 @@ def full_attention(p, cfg, x, positions, *, layer_type="global", return_kv=False
     o = chunked_attend(fold(q), fold(k), fold(v), causal=not cfg.encoder_only,
                        window=window, cap=cfg.attn_logit_softcap,
                        scale=cfg.head_dim ** -0.5)
-    y = L.dense(p["wo"], o.reshape(*lead, T, cfg.q_dim))
+    y = _out(p, cfg, o.reshape(*lead, T, -1), q.shape[-2])
     return (y, k, v) if return_kv else y
+
+
+def _out(p, cfg, o, heads: int):
+    """The output projection; over a slice of the heads, its partial sum
+    is added over 'model'."""
+    y = L.dense(p["wo"], o)
+    return y if heads == cfg.num_heads else SH.model_sum(y)
 
 
 def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, k_valid=None):
@@ -165,5 +181,5 @@ def decode_attention(p, cfg, x, cache, *, layer_type="global", window_override=0
     window = window_override or (cfg.sliding_window if layer_type == "local" else 0)
     o = _attend(q, kc, vc, t[:, None], pc, causal=True, window=window,
                 cap=cfg.attn_logit_softcap, scale=cfg.head_dim ** -0.5, k_valid=pc >= 0)
-    y = L.dense(p["wo"], o.reshape(B, 1, cfg.q_dim))
+    y = _out(p, cfg, o.reshape(B, 1, -1), q.shape[-2])
     return y, {"k": kc, "v": vc, "pos": pc, "length": t + 1}

@@ -14,13 +14,24 @@ from a `scatter_add_` into zeros(E) rather than `torch.bincount`, which
 reads its maximum back to the host: a decode step stays free of host
 syncs. The capacity is a Python int of the shapes.
 
-The expert-parallel path (`repro`'s `moe_apply_ep`, a `shard_map` over a
-mesh) comes with the mesh in slice 12.
+Over a mesh (`distributed/sharding.py`), inside a data-parallel scope,
+each rank routes its own tokens: the capacity is per (data shard, expert),
+C = max(int(N_l * k * cf / E), k), as `repro`'s expert-parallel path sets
+it, and the load-balance statistics are averaged over the data axes, so
+the aux loss is the global batch's. When the rank holds E/M of the experts
+(expert parallelism) it runs only those and the combine is a sum over
+'model'; `moe_apply_ep` is that path, `repro`'s `shard_map` body run per
+rank. Without a drop the mesh gives the single device's result; where
+the per-shard capacity drops a choice the global one would keep (or the
+other way round), they differ, as `repro`'s two paths do.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 PAD_ROWS = 16   # drop-bucket rows, as `repro` sizes its buffer
@@ -47,39 +58,40 @@ def route_topk(gates: torch.Tensor, k: int, capacity: int):
     keep (N, k), counts (E,)): slot indexes an (E*capacity + PAD_ROWS)
     buffer, E*capacity being the drop bucket; counts are the choices per
     expert before capacity."""
-    N, E = gates.shape
-    topv, topi = torch.topk(gates, k, dim=-1)                  # (N, k), descending
-    topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
-    flat_e = topi.t().reshape(-1)                              # rank-major (k*N,)
-    order = torch.argsort(flat_e, stable=True)
-    counts = torch.zeros(E, dtype=torch.long, device=gates.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = counts.cumsum(0) - counts
-    pos_sorted = torch.arange(k * N, device=gates.device) - starts[flat_e[order]]
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted).reshape(k, N).t()
-    keep = pos < capacity
-    slot = torch.where(keep, topi * capacity + pos, E * capacity)
-    return slot, topv, keep, counts
+    E = gates.shape[1]
+    slot, topv, keep, counts = route_local(gates, k, capacity, 0, E)
+    return slot, topv, keep, counts[:E]
+
+
+# expert-parallel toggle, set by the step factory (`launch/steps.py`): a
+# sharded run keeps each model rank's E/M experts (expert parallelism)
+# when it is on, and gathers every expert when it is off. A single device
+# ignores it.
+_EXPERT_PARALLEL = False
 
 
 def set_expert_parallel(on: bool):
-    """`repro`'s toggle for `moe_apply_ep`. Only off is ported."""
-    if on:
-        raise NotImplementedError("expert-parallel MoE needs the mesh (slice 12)")
+    global _EXPERT_PARALLEL
+    _EXPERT_PARALLEL = bool(on)
 
 
-def moe_apply_ep(p, cfg, x, mesh):
-    raise NotImplementedError("expert-parallel MoE (shard_map) comes with the mesh (slice 12)")
+def expert_parallel() -> bool:
+    return _EXPERT_PARALLEL
 
 
 def moe_apply(p, cfg, x):
     """x: (B, T, d) -> (y (B, T, d), aux_loss fp32 scalar). Works for T == 1
     decode too. The experts' weights are cast to x's dtype per call, as
-    `repro` casts them."""
+    `repro` casts them. Inside a data-parallel scope the mesh path runs
+    (`_moe_ranked`): expert-parallel when this rank holds a slice of the
+    experts."""
+    mesh = SH.dp_mesh()
+    if mesh is not None:
+        return _moe_ranked(p, cfg, x, mesh, ep=p["up"].shape[0] < cfg.moe.num_experts)
     e = cfg.moe
     B, T, d = x.shape
-    N = B * T
-    xf = x.reshape(N, d)
+    xf = x.reshape(B * T, d)
+    N = xf.shape[0]
     E, k = e.num_experts, e.experts_per_token
     capacity = max(int(N * k * e.capacity_factor / E), k)
 
@@ -107,3 +119,134 @@ def moe_apply(p, cfg, x):
     f = counts.float() / (N * k)
     aux = e.router_aux_coef * E * (f * gates.mean(0)).sum()
     return y.reshape(B, T, d), aux
+
+
+def route_local(gates, k: int, capacity: int, m_idx: int, E_l: int):
+    """`route_topk` for model rank `m_idx`'s experts [m_idx * E_l, (m_idx +
+    1) * E_l): choices of other ranks' experts are dropped here (their rank
+    takes them). Returns (slot (N, k) into an (E_l * capacity + PAD_ROWS)
+    buffer, weight (N, k), keep (N, k), counts (E_l + 1,): the local
+    experts' choices before capacity, then the other ranks')."""
+    N = gates.shape[0]
+    topv, topi = torch.topk(gates, k, dim=-1)                  # (N, k)
+    topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+    local_e = topi - m_idx * E_l
+    valid = (local_e >= 0) & (local_e < E_l)
+    flat_e = torch.where(valid, local_e, E_l).t().reshape(-1)  # rank-major
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(E_l + 1, dtype=torch.long, device=gates.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(0) - counts
+    pos_sorted = torch.arange(k * N, device=gates.device) - starts[flat_e[order]]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted).reshape(k, N).t()
+    keep = valid & (pos < capacity)
+    slot = torch.where(keep, local_e * capacity + pos, E_l * capacity)
+    return slot, topv, keep, counts
+
+
+def _local_experts(t, E, E_l, m_idx):
+    """This model rank's (E_l, ...) experts: a DTensor's 'model' shard,
+    gathered over the data axes (ZeRO-3; the backward reduce-scatters the
+    grads), or a slice of a plain tensor that holds all E."""
+    t = SH.gather(t, keep=("model",))
+    return t[m_idx * E_l:(m_idx + 1) * E_l] if t.shape[0] == E and E_l != E else t
+
+
+def moe_apply_ep(p, cfg, x, mesh):
+    """Expert-parallel MoE on a DeviceMesh, `repro`'s `shard_map` body run
+    on every rank. x is this rank's (B_l, T, d) rows of the data axes (a
+    DTensor is taken as its local rows); returns this rank's rows of y and
+    the aux loss, the same on every rank.
+
+      - the expert weights come as this rank's E/M experts, gathered over
+        the data axes (ZeRO-3: the backward reduce-scatters their grads);
+      - routing runs on every model rank (one (N_l, E) matmul);
+      - each model rank scatters only the choices routed to its experts
+        into a local (E_l * C + PAD_ROWS, d) buffer;
+      - the combine is an all-reduce over 'model' of each rank's weighted
+        outputs;
+      - the shared expert is split over 'model' on its hidden dim;
+      - aux: f and the mean gate p are averaged over the data axes before
+        the product, then summed over 'model', as `repro`'s.
+
+    Capacity is per (data shard, expert): C = max(int(N_l * k * cf / E), k),
+    the global capacity's expected load with a slightly different drop
+    boundary, as in `repro`."""
+    E = cfg.moe.num_experts
+    M = SH.mesh_sizes(mesh).get("model", 1)
+    m_idx = SH.axis_index(mesh, "model") if M > 1 else 0
+    q = dict(p, router={"w": SH.gather(p["router"]["w"])})
+    for n in ("up", "gate", "down"):
+        q[n] = _local_experts(p[n], E, E // M, m_idx)
+    if "shared" in p:
+        q["shared"] = {n: {k: SH.gather(t) for k, t in leaf.items()}
+                       for n, leaf in p["shared"].items()}
+    return _moe_ranked(q, cfg, x, mesh, ep=True)
+
+
+def _hidden_slice(mlp, M, m):
+    """Model rank m's slice of a bias-free MLP's hidden dim: up's and
+    gate's columns, down's rows."""
+    if any(set(leaf) != {"w"} for leaf in mlp.values()):
+        raise ValueError("a split shared expert takes no bias")
+    cut = lambda t, dim: t.narrow(dim, t.shape[dim] // M * m, t.shape[dim] // M)
+    return {n: {"w": cut(leaf["w"], -2 if n == "down" else -1)} for n, leaf in mlp.items()}
+
+
+def _moe_ranked(p, cfg, x, mesh, ep: bool):
+    """The MoE on one rank of a mesh: this rank's tokens, routed with the
+    per-shard capacity. `p` holds plain tensors: the router whole, the
+    experts whole or (`ep`) this model rank's E/M, the shared expert whole
+    or a slice of its hidden dim."""
+    e = cfg.moe
+    sizes = SH.mesh_sizes(mesh)
+    M = sizes.get("model", 1) if ep else 1
+    dp = SH.data_axes(mesh)
+    D = math.prod(sizes[ax] for ax in dp)
+    E, k = e.num_experts, e.experts_per_token
+    E_l = E // M
+    m_idx = SH.axis_index(mesh, "model") if M > 1 else 0
+    a = L.act_fn(cfg.activation)
+
+    xl = SH.local_rows(x)
+    B_l, T, d = xl.shape
+    N_l = B_l * T
+    C = max(int(N_l * k * e.capacity_factor / E), k)
+    xf = xl.reshape(N_l, d)
+
+    gates = torch.softmax(xf.float() @ p["router"]["w"].float(), dim=-1)
+    slot, topv, keep, counts = route_local(gates, k, C, m_idx, E_l)
+
+    buf = xl.new_zeros((E_l * C + PAD_ROWS, d))
+    buf[slot.reshape(-1)] = xf[torch.arange(N_l * k, device=xl.device) // k]
+    expert_in = buf[:E_l * C].view(E_l, C, d)
+    h = torch.bmm(expert_in, p["up"].to(xl.dtype))
+    g = torch.bmm(expert_in, p["gate"].to(xl.dtype))
+    out = torch.bmm(a(g) * h, p["down"].to(xl.dtype))
+    out_flat = torch.cat([out.reshape(E_l * C, d), xl.new_zeros((PAD_ROWS, d))])
+    w = (topv * keep).to(xl.dtype)
+    y = torch.einsum("nk,nkd->nd", w, out_flat[slot])
+    if M > 1:
+        y = SH.all_reduce_sum(y, mesh, ("model",))             # combine
+
+    if "shared" in p:
+        sh, ff = p["shared"], cfg.d_ff * e.num_shared_experts
+        Mm = sizes.get("model", 1)
+        if ep and Mm > 1 and sh["up"]["w"].shape[-1] == ff and ff % Mm == 0:
+            sh = _hidden_slice(sh, Mm, SH.axis_index(mesh, "model"))
+        ys = L.mlp(sh, xf, cfg.activation)
+        if sh["up"]["w"].shape[-1] != ff:                     # a slice of the hidden dim
+            ys = SH.all_reduce_sum(ys, mesh, ("model",))
+        y = y + ys
+
+    # load-balance aux: the global load fraction times the global mean gate
+    # probability, averaged over data before the product
+    f_local = counts[:E_l].float() / (N_l * k)
+    p_local = gates.mean(0)[m_idx * E_l:(m_idx + 1) * E_l]
+    if dp:
+        f_local = SH.all_reduce_sum(f_local, mesh, dp) / D
+        p_local = SH.all_reduce_sum(p_local, mesh, dp) / D
+    aux = e.router_aux_coef * E * (f_local * p_local).sum()
+    if M > 1:
+        aux = SH.all_reduce_sum(aux, mesh, ("model",))
+    return y.reshape(B_l, T, d), aux

@@ -37,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import dtype_of
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -203,6 +204,8 @@ def _apply_unit(cfg, unit, x, attend, io=None):
             aux = aux + a
         else:
             y = L.mlp(sub["mlp"], h, cfg.activation)
+            if sub["mlp"]["up"]["w"].shape[-1] != cfg.d_ff:   # a slice of the hidden dim
+                y = SH.model_sum(y)
         if cfg.post_block_norms:
             y = L.norm_apply(cfg.norm, sub["post_mlp_norm"], y)
         x = x + y
@@ -230,6 +233,19 @@ def _apply_unit_step(cfg, unit, x, io, window_override=0, uniform=False):
 # embedding / heads
 # ===========================================================================
 
+def embed_tokens(params, cfg, tokens, cdt):
+    """The token embeddings. Under a mesh scope whose rank holds V/M rows
+    of the table (vocab parallelism), each model rank looks up the tokens
+    in its rows, zeros the rest, and the sum over 'model' is the lookup."""
+    p = SH.materialize(params["embed"], ("embed",))
+    rows = p["table"].shape[-2]
+    if rows == cfg.vocab_size:
+        return L.embed(p, tokens, cdt, cfg.embed_scale)
+    t = tokens - SH.model_index() * rows
+    inside = ((t >= 0) & (t < rows))[..., None].to(cdt)
+    return SH.model_sum(L.embed(p, t.clamp(0, rows - 1), cdt, cfg.embed_scale) * inside)
+
+
 def embed_inputs(params, cfg, batch):
     """batch: {'tokens': (B, T) or (M, B, T) int, or None} and/or the stub
     frontends' embeddings {'patch_embeds': (B, P, d)} (vlm) and
@@ -239,7 +255,7 @@ def embed_inputs(params, cfg, batch):
     cdt = dtype_of(cfg.compute_dtype)
     parts = [batch[k].to(cdt) for k in ("patch_embeds", "frame_embeds") if k in batch]
     if batch.get("tokens") is not None:
-        parts.append(L.embed(params["embed"], batch["tokens"], cdt, cfg.embed_scale))
+        parts.append(embed_tokens(params, cfg, batch["tokens"], cdt))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
     positions = torch.arange(x.shape[-2], dtype=torch.int32,
                              device=x.device).expand(x.shape[:-1])
@@ -247,14 +263,21 @@ def embed_inputs(params, cfg, batch):
 
 
 def heads(params, cfg, x):
-    h = L.norm_apply(cfg.norm, params["final_norm"], x)
+    """(logits fp32, values fp32). Under a mesh scope with vocab
+    parallelism each model rank computes its V/M columns of the logits,
+    gathered over 'model'."""
+    used = ("final_norm", "value_head", "embed" if cfg.tie_embeddings else "lm_head")
+    p = SH.materialize({k: params[k] for k in used})
+    h = L.norm_apply(cfg.norm, p["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = L.dense({"w": params["embed"]["table"].transpose(-1, -2)}, h)
+        logits = L.dense({"w": p["embed"]["table"].transpose(-1, -2)}, h)
     else:
-        logits = L.dense(params["lm_head"], h)
+        logits = L.dense(p["lm_head"], h)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = SH.model_gather(logits, -1)
     logits = L.softcap(logits.float(), cfg.final_logit_softcap)
-    vh = torch.tanh(L.dense(params["value_head"]["h"], h))
-    values = L.dense(params["value_head"]["out"], vh)[..., 0].float()
+    vh = torch.tanh(L.dense(p["value_head"]["h"], h))
+    values = L.dense(p["value_head"]["out"], vh)[..., 0].float()
     return logits, values
 
 
@@ -284,8 +307,14 @@ def forward_train(params, cfg, batch, remat=False):
     unit's activations at a time and runs the unit's forward again.
     `repro`'s `q_chunk` and `unroll` have no counterpart: the attention
     kernels tile the sequence themselves, and the loop over repeats is
-    plain Python."""
+    plain Python.
+
+    Under a mesh scope (`distributed/sharding.param_scope`) each unit
+    gathers its weights inside its own (checkpointed) function, so the
+    gathered copy lives for that unit's forward, and with remat for its
+    recompute in the backward; the heads are checkpointed too."""
     _check_family(cfg)
+    scope = SH.capture()
     x, positions = embed_inputs(params, cfg, batch)
     grouped = x.dim() == 4
     if grouped and (cfg.moe or cfg.ssm):
@@ -295,11 +324,19 @@ def forward_train(params, cfg, batch, remat=False):
         if group not in params:
             continue
         for r in range(_units(params[group], grouped)):
-            unit = _index(params[group], r, grouped)
-            fn = lambda x, unit=unit: _apply_unit_full(cfg, unit, x, positions)
+            def fn(x, unit=_index(params[group], r, grouped), group=group):
+                with SH.restored(scope):
+                    unit = SH.materialize(unit, (group,), 1 if grouped else 0)
+                    return _apply_unit_full(cfg, unit, x, positions)
             x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
             aux = aux + a
-    logits, values = heads(params, cfg, x)
+
+    def head(x):
+        with SH.restored(scope):
+            return heads(params, cfg, x)
+    sharded = scope.params is not None
+    logits, values = (checkpoint(head, x, use_reentrant=False) if remat and sharded
+                      else head(x))
     if not torch.is_tensor(aux):
         aux = torch.zeros((), device=logits.device)
     return logits, values, aux
@@ -379,7 +416,7 @@ def decode_step(params, cfg, tokens, state, *, window=0, uniform=False):
     batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     cdt = dtype_of(cfg.compute_dtype)
     if "tokens" in batch:
-        x = L.embed(params["embed"], batch["tokens"], cdt, cfg.embed_scale)
+        x = embed_tokens(params, cfg, batch["tokens"], cdt)
     else:
         x = batch["patch_embeds"].to(cdt)
     length = state["length"]
@@ -391,8 +428,9 @@ def decode_step(params, cfg, tokens, state, *, window=0, uniform=False):
             # per-unit override)
             io = {key: ({**_index(c, r, False), "length": length} if isinstance(c, dict)
                         else c[r]) for key, c in stacked.items()}
-            x, _ = _apply_unit_step(cfg, _index(params[group], r, False), x, io,
-                                    window_override=window, uniform=uniform)
+            unit = SH.materialize(_index(params[group], r, False), (group,), 0)
+            x, _ = _apply_unit_step(cfg, unit, x, io, window_override=window,
+                                    uniform=uniform)
             for key, c in stacked.items():
                 if not isinstance(c, dict):
                     c[r].copy_(io[key])
@@ -445,7 +483,8 @@ def prefill(params, cfg, batch, *, sliding=False, reserve=64):
                 kc["pos"][:, slots] = positions[:, start:]
                 return y
             io = {}
-            x, _ = _apply_unit(cfg, _index(params[group], r, False), x, attend, io)
+            unit = SH.materialize(_index(params[group], r, False), (group,), 0)
+            x, _ = _apply_unit(cfg, unit, x, attend, io)
             for key, t in io.items():
                 stacked[key][r].copy_(t)
         for c in stacked.values():

@@ -561,3 +561,73 @@ def test_family_decode_step_has_no_host_sync(gen, arch):
             norms, 0)
         assert torch.isfinite(lg).all() and torch.isfinite(v).all()
         assert state["length"].tolist() == [25, 25]
+
+
+# -- the mesh: one card is a (1, 1) mesh ---------------------------------------------
+
+def test_sharded_infserver_on_the_card_matches_unsharded(gen):
+    """`InfServer(mesh=make_local_mesh())` (NCCL, one rank) against the
+    unsharded server on the card: θ alone, then θ and φ grouped, within
+    1e-4 (actions equal); the forwards launch the kernels, never the plain
+    versions."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
+
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), compute_dtype="float32")
+    theta, phi = (init_params(torch.Generator(device="cuda").manual_seed(s), cfg)
+                  for s in (0, 1))
+    rng = np.random.default_rng(7)
+    obs_a = rng.integers(0, 512, (5, 26)).astype(np.int32)
+    obs_b = rng.integers(0, 512, (3, 26)).astype(np.int32)
+
+    def run(mesh):
+        s = InfServer(cfg, 6, max_batch=64, seed=3, mesh=mesh)
+        s.register_model("theta", theta)
+        out = [s.get(s.submit(obs_a, model="theta"))]
+        s.register_model("phi", phi)
+        t1, t2 = s.submit(obs_a, model="theta"), s.submit(obs_b, model="phi")
+        s.flush()
+        return out + [s.get(t1), s.get(t2)], s.stats()
+
+    single, _ = run(None)
+    dispatch.stats(reset=True)
+    mesh = make_local_mesh()
+    try:
+        sharded, st = run(mesh)
+    finally:
+        close_local_mesh()
+    assert st["sharded"] is True and st["mesh_shape"] == [1, 1]
+    calls = dispatch.stats()
+    assert calls.get("rmsnorm|kernel", 0) > 0 and calls.get("attention|kernel", 0) > 0
+    assert not any("|reference" in k for k in calls)
+    for (a, lp, v), (a0, lp0, v0) in zip(sharded, single):
+        np.testing.assert_array_equal(a, a0)
+        np.testing.assert_allclose(lp, lp0, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(v, v0, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"])
+def test_moe_apply_ep_on_the_card_matches_moe_apply(gen, arch):
+    """`moe_apply_ep` on the card's (1, 1) mesh against `moe_apply`, fp32:
+    y, aux and every grad within `tests/test_moe_ep.py`'s bounds."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
+    from repro_torch.models import moe
+
+    cfg = get_arch(arch).smoke()
+    p = tree_map(lambda t: t.requires_grad_(True), moe.init_moe(gen, cfg, torch.float32))
+    x = torch.randn(4, 16, cfg.d_model, device="cuda", generator=gen)
+    y0, a0 = moe.moe_apply(p, cfg, x)
+    g0 = torch.autograd.grad(y0.sum(), tree_leaves(p))
+    mesh = make_local_mesh()
+    try:
+        with SH.data_parallel(mesh, ("data",)):
+            y1, a1 = moe.moe_apply_ep(p, cfg, x, mesh)
+            loss = SH.batch_sum(y1.sum())
+        g1 = torch.autograd.grad(loss / mesh.size(), tree_leaves(p))
+    finally:
+        close_local_mesh()
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(a1, a0, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)

@@ -194,12 +194,34 @@ def test_moe_drops_the_same_tokens_as_repro(cf):
 
 
 def test_expert_parallel_raises_naming_the_mesh_slice():
+    """The toggle no longer raises (the mesh is ported): with no mesh scope
+    `moe_apply` keeps its routed path whatever the toggle says; inside a
+    data-parallel scope on a one-rank mesh it takes the mesh path
+    (`_moe_ranked`), and so does `moe_apply_ep`, each equal to the routed
+    path (`tests/test_torch_mesh.py` holds them on (2, 4))."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
+
     _, tcfg = _cfgs("qwen3-moe-235b-a22b")
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        moe.set_expert_parallel(True)
-    moe.set_expert_parallel(False)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        moe.moe_apply_ep({}, tcfg, torch.zeros(1, 1, tcfg.d_model), None)
+    p = moe.init_moe(torch.Generator().manual_seed(0), tcfg, torch.float32)
+    x = torch.randn(2, 8, tcfg.d_model, generator=torch.Generator().manual_seed(1))
+    y0, a0 = moe.moe_apply(p, tcfg, x)
+    moe.set_expert_parallel(True)
+    try:
+        y1, a1 = moe.moe_apply(p, tcfg, x)           # no mesh scope: the routed path
+        assert torch.equal(y1, y0) and torch.equal(a1, a0)
+        mesh = make_local_mesh("cpu")
+        try:
+            with SH.data_parallel(mesh, ("data",)):
+                y2, a2 = moe.moe_apply(p, tcfg, x)   # the mesh path
+                y3, a3 = moe.moe_apply_ep(p, tcfg, x, mesh)
+        finally:
+            close_local_mesh()
+    finally:
+        moe.set_expert_parallel(False)
+    for y, a in ((y2, a2), (y3, a3)):
+        torch.testing.assert_close(y, y0, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a, a0, rtol=1e-5, atol=1e-6)
 
 
 # -- the scans -----------------------------------------------------------------

@@ -9,8 +9,9 @@ the multiprocess league as users start it, the k8s render against
   step quota of 4: a clean shutdown, every exit code 0, and one JSON
   result line per child that parses, with its kernel launch counts.
 - The CLI without `--device` on a host without a card raises instead of
-  running on the CPU; `--sharded` raises `NotImplementedError` (ROADMAP
-  queue 1 item 8). The decode demo runs on the CPU, for a dense arch
+  running on the CPU; `--sharded` serves over a one-rank mesh of its own
+  process group and tears the group down at stop. The decode demo runs on
+  the CPU, for a dense arch
   through the CLI and for one arch of each other decoding family in
   process.
 - `k8s.render()` equals `repro`'s line for line, apart from the module
@@ -120,16 +121,25 @@ def test_cli_without_device_raises_without_a_card():
 
 
 def test_sharded_raises_not_implemented():
+    """`--sharded` no longer raises: the infserver role (its coordinator
+    unreachable, so it stops at once) and the coordinator's served
+    InfServer each serve over a (1, 1) mesh of their own process group,
+    report it, and tear the group down on the way out."""
+    import torch.distributed as tdist
+
     from repro_torch.launch import distributed as dist
     from repro_torch.league import LeagueSpec
 
+    st = dist.run_infserver("127.0.0.1:1", sharded=True, device="cpu",
+                            heartbeat_timeout_s=2.0, verbose=False)
+    assert st["sharded"] is True and st["mesh_shape"] == [1, 1]
+    assert not tdist.is_initialized()
     spec = LeagueSpec.from_json(str(SPEC))
-    for call in (lambda: dist.run_coordinator(spec, sharded=True, device="cpu"),
-                 lambda: dist.run_multiprocess(spec, workers=1, sharded=True,
-                                               max_steps_per_role=1, device="cpu"),
-                 lambda: dist.run_infserver("127.0.0.1:1", sharded=True, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    report = dist.run_coordinator(spec, served=True, sharded=True, device="cpu",
+                                  max_seconds=0.5, verbose=False)
+    assert report["serving"]["sharded"] is True
+    assert report["serving"]["mesh_shape"] == [1, 1]
+    assert not tdist.is_initialized()
 
 
 def test_decode_demo_runs_on_cpu():
