@@ -63,11 +63,14 @@ drives the port's paths on the card:
   a probe per lineage against the CPU's plain forward, both replicas
   serving with exactly their flushes' launches, rows/s in warm windows
   alternated with one in-process InfServer's;
-- decode: the dense family's serving path on gemma2-2b and qwen3-8b at
-  full width and depth (bf16 compute over fp32 params): the decode demo
-  (`launch.serve.serve`), prefill of 4 x 1024 tokens and greedy KV-cache
-  decode steps with exactly their launches (RMSNorm 105 / 145 per prefill
-  and per step, the flash forward 26 / 36 per prefill and none per step),
+- decode: the dense family's serving path at full width: gemma2-2b and
+  qwen3-8b at full depth (bf16 compute over fp32 params), command-r-35b at
+  full depth and mistral-large-123b at 20 of 88 layers (bf16 params): the
+  decode demo (`launch.serve.serve`; gemma2 and qwen3), prefill of 4 x 1024
+  tokens and greedy KV-cache decode steps with exactly their launches
+  (RMSNorm 105 / 145 / 0 / 41 per prefill and per step, command-r's norms
+  being LayerNorms; the flash forward once per layer per prefill and none
+  per step),
   a step with no host sync, decode against forward_train at fp32, gemma2's
   sliding ring (a 4608-token prompt) and long_500k state, the InfServer
   over the gemma2 backbone, and one repeat unit card vs CPU;
@@ -104,12 +107,16 @@ drives the port's paths on the card:
   params: loss and grads at fp32 against the unsharded step, then the
   whole step at bf16 with adamw on the DTensors), and `moe_apply_ep` on
   qwen3-moe's MoE layer (128 experts, 4 x 1,024 tokens) against
-  `moe_apply`. The multiprocess phase's served run is `--served
-  --sharded`, its InfServer on a (1, 1) mesh of the coordinator's card.
+  `moe_apply`, and the factory's prefill and decode fns (tensor-parallel
+  serving) for command-r-35b at full width (2 of 40 layers) bitwise
+  against the unsharded prefill and decode. The multiprocess phase's
+  served run is `--served --sharded`, its InfServer on a (1, 1) mesh of the
+  coordinator's card.
 
 Phase 3 and 3b also hold the flash kernels at head dim 80 (hubert's train
-shape in bf16, the fp32 regime at T = 1,024) and the backward at G = 16,
-8 and 5 against their plain versions.
+shape in bf16, the fp32 regime at T = 1,024), the forward at G = 12
+(mistral's prefill), RMSNorm at d = 12,288 and the backward at G = 16, 8
+and 5 against their plain versions.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
@@ -179,10 +186,21 @@ FLEET_REPLICAS, FLEET_ROUNDS, FLEET_ROWS = 2, 50, 64
 # alternated: windows of rounds of FLEET_REPLICAS x FLEET_ROWS rows each
 FLEET_WINDOWS, FLEET_WINDOW_ROUNDS = 3, 200
 FLEET_DEADLINE_MS = 250.0                      # serve_fleet's default
-# the decode path: gemma2-2b and qwen3-8b at full width and depth, bf16
-# compute over fp32 params (the configs' own dtypes), seeded params
+# the decode path: the dense archs at full width in the configs' own
+# dtypes (gemma2-2b and qwen3-8b: bf16 compute over fp32 params, full
+# depth; command-r-35b and mistral-large-123b: bf16 params), seeded
+# params; arch -> (greedy steps, layers or None for full depth).
+# mistral's depth is cut to fit the card: 88 layers of 1.384 B params hold
+# 245 GB in bf16, 20 of them 55.4 GB, with 1.61 GB of untied embed and
+# lm_head. command-r at its 40 layers holds 30.3 B params, 60.6 GB.
 DECODE_B, DECODE_T = 4, 1024                   # prompts longer than prefill's reserve (64)
-DECODE_STEPS = {"gemma2-2b": 32, "qwen3-8b": 16}
+DECODE_ARCHS = {"gemma2-2b": (32, None), "qwen3-8b": (16, None),
+                "command-r-35b": (16, None), "mistral-large-123b": (16, 20)}
+# the archs that also run the decode demo (`launch.serve.serve`, which
+# draws its own params) and the one-unit card-vs-CPU check; the others'
+# params take most of the card, and their CPU unit 16-26 s of the
+# script's time (command-r's 256,000-wide tied head on the host)
+DECODE_EXTRAS = ("gemma2-2b", "qwen3-8b")
 DECODE_PREFILLS = 3                            # timed prefills, after one warm-up
 SLIDING_T, SLIDING_STEPS = 4608, 16            # past gemma2's 4096 window
 LONG_STEPS = 16                                # long_500k: O(window) state
@@ -1616,7 +1634,10 @@ def fleet_phase(dev, cfg, smi, per_forward):
 def norms_per_pass(cfg):
     """RMSNorm launches per prefill or decode step: the attention and MLP
     norms of every layer, the post-block norms (gemma2) and the q/k norms
-    (qwen3) where the config has them, and the final norm."""
+    (qwen3) where the config has them, and the final norm; none for a
+    LayerNorm config (command-r's norms are plain PyTorch, as in `repro`)."""
+    if cfg.norm != "rmsnorm":
+        return 0
     return (2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm) * cfg.num_layers + 1
 
 
@@ -1652,12 +1673,14 @@ def held(state):
 
 def decode_phase(dev, counters, smi):
     """The dense family's serving path (prefill, the ring-buffer KV cache,
-    decode_step) on gemma2-2b and qwen3-8b at full width and depth, bf16
-    compute over fp32 params. Per arch:
+    decode_step) at full width in the configs' dtypes: gemma2-2b and
+    qwen3-8b at full depth (bf16 compute over fp32 params), command-r-35b
+    and mistral-large-123b (bf16) at DECODE_ARCHS' depth. Per arch:
 
-    - `launch.serve.serve` (the decode demo) on DECODE_B x DECODE_T prompts,
-      greedy, with exactly its prefill's and its steps' launches;
-    - DECODE_PREFILLS timed prefills and DECODE_STEPS greedy uniform steps,
+    - gemma2-2b and qwen3-8b: `launch.serve.serve` (the decode demo) on
+      DECODE_B x DECODE_T prompts, greedy, with exactly its prefill's and
+      its steps' launches;
+    - DECODE_PREFILLS timed prefills and DECODE_ARCHS' greedy uniform steps,
       then a uniform=False step and one step under
       `set_sync_debug_mode("error")`, each with exactly its launches
       (RMSNorm `norms_per_pass`; the flash forward once per layer per
@@ -1669,10 +1692,10 @@ def decode_phase(dev, counters, smi):
       long_500k shape (`init_decode_state(cfg, 1, 524288, sliding=True)`),
       and the InfServer over its backbone (examples/serve_policy.py step
       3): INF_REQUESTS requests in one flush;
-    - card vs CPU: one repeat unit at full width, fp32 compute, a prefill of
-      DECODE_CPU_T (> reserve) tokens and DECODE_CPU_STEPS steps: logits,
-      values and every cache leaf within CARD_VS_CPU_TOL of max(1, max |cpu|),
-      positions and lengths equal."""
+    - gemma2-2b and qwen3-8b: card vs CPU, one repeat unit at full width,
+      fp32 compute, a prefill of DECODE_CPU_T (> reserve) tokens and
+      DECODE_CPU_STEPS steps: logits, values and every cache leaf within
+      CARD_VS_CPU_TOL of max(1, max |cpu|), positions and lengths equal."""
     import torch
 
     from repro_torch.configs import INPUT_SHAPES, get_arch
@@ -1690,27 +1713,39 @@ def decode_phase(dev, counters, smi):
 
     counted = lambda fn, want, what: counted_run(counters, total, fn, want, what)
 
-    for arch, steps in DECODE_STEPS.items():
+    for arch, (steps, depth) in DECODE_ARCHS.items():
         t_arch = time.perf_counter()
         cfg = get_arch(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
         L = cfg.num_layers
         per_prefill = {"rmsnorm": norms_per_pass(cfg), "flash_attention_fwd": L}
         per_step = {"rmsnorm": norms_per_pass(cfg)}
-        rec = {"launches_per_prefill": per_prefill, "launches_per_step": per_step}
+        rec = {"layers": L, "published_layers": get_arch(arch).num_layers,
+               "launches_per_prefill": per_prefill, "launches_per_step": per_step}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        parts, t_part = {}, [time.perf_counter()]
 
-        # the user's entry point: the decode demo at full width
-        demo = counted(lambda: serve(arch, smoke=False, batch=DECODE_B, prompt_len=DECODE_T,
-                                     new_tokens=steps, temperature=0.0, device=dev),
-                       {k: per_prefill.get(k, 0) + steps * per_step.get(k, 0) for k in names},
-                       f"{arch} serve demo")
-        check(len(demo) == steps and all(t.shape == (DECODE_B, 1) for t in demo),
-              f"{arch} serve demo: tokens")
-        del demo
+        def part(name):
+            """The seconds since the last part, recorded under `name`."""
+            now = time.perf_counter()
+            parts[name], t_part[0] = now - t_part[0], now
+
+        if arch in DECODE_EXTRAS:                 # the user's entry point at full width
+            demo = counted(lambda: serve(arch, smoke=False, batch=DECODE_B,
+                                         prompt_len=DECODE_T, new_tokens=steps,
+                                         temperature=0.0, device=dev),
+                           {k: per_prefill.get(k, 0) + steps * per_step.get(k, 0)
+                            for k in names}, f"{arch} serve demo")
+            check(len(demo) == steps and all(t.shape == (DECODE_B, 1) for t in demo),
+                  f"{arch} serve demo: tokens")
+            del demo
+        part("demo")
 
         with torch.inference_mode():
             params = init_params(torch.Generator(device=dev).manual_seed(11), cfg)
+            rec["params"] = sum(a.numel() for _, a in tree_flatten_with_path(params)[0])
             toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (DECODE_B, DECODE_T))).to(dev)
             batch = {"tokens": toks}
 
@@ -1763,6 +1798,7 @@ def decode_phase(dev, counters, smi):
                 total[k] += n
             check_on_card(f"{arch} profiled")
             del state
+            part("prefill_steps_profiles")
 
             # consistency: the first decoded token's logits against
             # forward_train over the prompt and that token, at position T
@@ -1783,6 +1819,7 @@ def decode_phase(dev, counters, smi):
             # fp32 from bf16 inputs, and 26-36 bf16 layers carry the two
             # roundings apart; the fp32 comparison above holds the algorithm
             rec["consistency"] = {**cons, "tol": {"float32": CONSISTENCY_TOL}}
+            part("consistency")
 
             if arch == "gemma2-2b":
                 W = cfg.long_context_window
@@ -1846,6 +1883,7 @@ def decode_phase(dev, counters, smi):
                                     "flush_ms": 1e3 * server.last_batch_latency_s}
                 del server
             del params
+        part("sliding_long_infserver")
         rec.update(prefill_ms_median=statistics.median(prefill_ms),
                    prefill_ms_each=[round(x, 3) for x in prefill_ms],
                    decode_ms_median=statistics.median(step_ms),
@@ -1854,41 +1892,44 @@ def decode_phase(dev, counters, smi):
         torch.cuda.empty_cache()
 
         # card vs CPU: one repeat unit at full width, fp32 compute
-        cfg1 = dataclasses.replace(cfg, num_layers=len(cfg.layer_pattern),
-                                   compute_dtype="float32")
-        ctoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                              (DECODE_CPU_B, DECODE_CPU_T + DECODE_CPU_STEPS)))
+        if arch in DECODE_EXTRAS:
+            cfg1 = dataclasses.replace(cfg, num_layers=len(cfg.layer_pattern),
+                                       compute_dtype="float32")
+            ctoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                  (DECODE_CPU_B, DECODE_CPU_T + DECODE_CPU_STEPS)))
 
-        def run(p, d):
-            lg, v, st = prefill(p, cfg1, {"tokens": ctoks[:, :DECODE_CPU_T].to(d)})
-            outs = [lg, v]
-            for i in range(DECODE_CPU_T, DECODE_CPU_T + DECODE_CPU_STEPS):
-                lg, v, st = decode_step(p, cfg1, ctoks[:, i:i + 1].to(d), st, uniform=i % 2 == 0)
-                outs += [lg, v]
-            return outs, st
+            def run(p, d):
+                lg, v, st = prefill(p, cfg1, {"tokens": ctoks[:, :DECODE_CPU_T].to(d)})
+                outs = [lg, v]
+                for i in range(DECODE_CPU_T, DECODE_CPU_T + DECODE_CPU_STEPS):
+                    lg, v, st = decode_step(p, cfg1, ctoks[:, i:i + 1].to(d), st, uniform=i % 2 == 0)
+                    outs += [lg, v]
+                return outs, st
 
-        with torch.inference_mode():
-            p_dev = init_params(torch.Generator(device=dev).manual_seed(12), cfg1)
-            o_cpu, s_cpu = run(tree_map(lambda a: a.cpu(), p_dev), torch.device("cpu"))
-            zero(counters)
-            o_dev, s_dev = run(p_dev, dev)
-            for k, n in read(counters).items():
-                total[k] += n
-            check_on_card(f"{arch} card vs CPU")
-            errs = {"logits_values": max(rel_err(a.cpu(), b) for a, b in zip(o_dev, o_cpu))}
-            leaves = list(zip(tree_flatten_with_path(s_dev)[0], tree_flatten_with_path(s_cpu)[0]))
-            errs["cache"] = max(rel_err(a.cpu(), b) for (_, a), (_, b) in leaves
-                                if a.is_floating_point())
-            check(all(torch.equal(a.cpu(), b) for (_, a), (_, b) in leaves
-                      if not a.is_floating_point()), f"{arch} card vs CPU: positions differ")
-            for what, e in errs.items():
-                check(e <= CARD_VS_CPU_TOL,
-                      f"{arch} decode card vs CPU ({what}): {e} > {CARD_VS_CPU_TOL}")
-            rec["card_vs_cpu"] = {"layers": cfg1.num_layers, "batch": DECODE_CPU_B,
-                                  "prompt": DECODE_CPU_T, "steps": DECODE_CPU_STEPS,
-                                  "max_err": errs, "tol": CARD_VS_CPU_TOL}
-            del p_dev, s_dev, o_dev
-        torch.cuda.empty_cache()
+            with torch.inference_mode():
+                p_dev = init_params(torch.Generator(device=dev).manual_seed(12), cfg1)
+                o_cpu, s_cpu = run(tree_map(lambda a: a.cpu(), p_dev), torch.device("cpu"))
+                zero(counters)
+                o_dev, s_dev = run(p_dev, dev)
+                for k, n in read(counters).items():
+                    total[k] += n
+                check_on_card(f"{arch} card vs CPU")
+                errs = {"logits_values": max(rel_err(a.cpu(), b) for a, b in zip(o_dev, o_cpu))}
+                leaves = list(zip(tree_flatten_with_path(s_dev)[0], tree_flatten_with_path(s_cpu)[0]))
+                errs["cache"] = max(rel_err(a.cpu(), b) for (_, a), (_, b) in leaves
+                                    if a.is_floating_point())
+                check(all(torch.equal(a.cpu(), b) for (_, a), (_, b) in leaves
+                          if not a.is_floating_point()), f"{arch} card vs CPU: positions differ")
+                for what, e in errs.items():
+                    check(e <= CARD_VS_CPU_TOL,
+                          f"{arch} decode card vs CPU ({what}): {e} > {CARD_VS_CPU_TOL}")
+                rec["card_vs_cpu"] = {"layers": cfg1.num_layers, "batch": DECODE_CPU_B,
+                                      "prompt": DECODE_CPU_T, "steps": DECODE_CPU_STEPS,
+                                      "max_err": errs, "tol": CARD_VS_CPU_TOL}
+                del p_dev, s_dev, o_dev
+            torch.cuda.empty_cache()
+        part("card_vs_cpu")
+        rec["seconds_by_part"] = parts
         rec["seconds"] = time.perf_counter() - t_arch
         out[arch] = rec
         emit("decode", card=smi, arch=arch, compute_dtype=cfg.compute_dtype,
@@ -2527,6 +2568,9 @@ MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_TRAIN_B = "qwen3-8b", 2, 1
 MESH_TRAIN_STEPS = 3                           # timed bf16 steps, after one warm-up
 MESH_MOE_ARCH, MESH_MOE_B, MESH_MOE_T = "qwen3-moe-235b-a22b", 4, 1024
 MESH_FLUSH_ROUNDS = 20
+# command-r-35b's prefill (DECODE_B x DECODE_T) and greedy decode steps
+# through the dry-run factory's fns, at full width and 2 of 40 layers
+MESH_DECODE_ARCH, MESH_DECODE_LAYERS, MESH_DECODE_STEPS = "command-r-35b", 2, 4
 
 
 def mesh_phase(dev, counters, smi, per_forward):
@@ -2546,7 +2590,13 @@ def mesh_phase(dev, counters, smi, per_forward):
         MESH_TRAIN_STEPS, peak MB;
     (c) `moe_apply_ep` on qwen3-moe's MoE
         layer at full width, 4 x 1,024 tokens, fp32: y, aux and every grad
-        within CARD_VS_CPU_TOL of `moe_apply`'s, the routing slots equal.
+        within CARD_VS_CPU_TOL of `moe_apply`'s, the routing slots equal;
+    (d) `make_dryrun_step`'s prefill and decode fns (tensor-parallel
+        serving) for command-r-35b at full width, MESH_DECODE_LAYERS
+        layers, bf16: a DECODE_B x DECODE_T prefill and MESH_DECODE_STEPS
+        greedy uniform steps, bitwise equal to the unsharded `prefill` and
+        `decode_step` (last-position logits and values, each step's logits
+        and values, every state leaf), with exactly their launches.
     Every run launches its kernels and no plain version. Returns
     (launches, numbers)."""
     import torch
@@ -2558,7 +2608,7 @@ def mesh_phase(dev, counters, smi, per_forward):
     from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
     from repro_torch.launch.steps import make_dryrun_step, make_optimizer
     from repro_torch.learners import build_seq_train_step
-    from repro_torch.models import init_params
+    from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models import moe
     from repro_torch.utils import tree_leaves, tree_map
 
@@ -2754,7 +2804,69 @@ def mesh_phase(dev, counters, smi, per_forward):
         emit("mesh_moe", card=smi, mesh=[1, 1], tol=CARD_VS_CPU_TOL, **out["moe"])
         del p, x, y0, y1, g0, g1, gates
         torch.cuda.empty_cache()
+
+        # -- (d) tensor-parallel prefill and decode: command-r ------------------
+        ccfg = dataclasses.replace(get_arch(MESH_DECODE_ARCH), num_layers=MESH_DECODE_LAYERS)
+        INPUT_SHAPES["mesh_prefill"] = InputShape("mesh_prefill", DECODE_T, DECODE_B, "prefill")
+        # the decode state's specs are those of the prefill's cache (64 slots more)
+        INPUT_SHAPES["mesh_decode"] = InputShape("mesh_decode", DECODE_T + 64, DECODE_B,
+                                                 "decode")
+        toks = torch.from_numpy(np.random.default_rng(27).integers(
+            0, ccfg.vocab_size, (DECODE_B, DECODE_T + MESH_DECODE_STEPS))).to(dev)
+        want = {k: 0 for k in names}
+        want.update(rmsnorm=norms_per_pass(ccfg) * (1 + MESH_DECODE_STEPS),
+                    flash_attention_fwd=ccfg.num_layers)
+
+        def serve_run(prefill_fn, step_fn):
+            """Last-position logits and values (`prefill_fn` returns those
+            and the state, as the factory's fn does), each step's, the final
+            state's leaves (plain tensors), and the prefill and step ms."""
+            ms_p, (lg, v, st) = sync_wall(lambda: prefill_fn(toks[:, :DECODE_T]))
+            res, step_ms = [lg, v], []
+            for i in range(DECODE_T, DECODE_T + MESH_DECODE_STEPS):
+                ms, (dl, dv, st) = sync_wall(lambda: step_fn(toks[:, i:i + 1], st))
+                res += [dl, dv]
+                step_ms.append(ms)
+            local = lambda t: t.to_local() if SH.is_dtensor(t) else t
+            return [local(t) for t in res] + [local(t) for _, t in SH.leaves_with_path(st)], \
+                ms_p, statistics.median(step_ms)
+
+        with torch.no_grad():
+            params = init_params(torch.Generator(device=dev).manual_seed(26), ccfg)
+            zero(counters)
+            def last(lg, v, st):
+                return lg[:, -1], v[:, -1], st
+            ref, p_ms0, s_ms0 = serve_run(
+                lambda t: last(*prefill(params, ccfg, {"tokens": t})),
+                lambda t, st: decode_step(params, ccfg, t, st, uniform=True))
+            n_plain = add("mesh: unsharded command-r prefill and decode")
+            pre = make_dryrun_step(ccfg, "mesh_prefill", mesh)
+            dec = make_dryrun_step(ccfg, "mesh_decode", mesh)
+            pd = SH.distribute(params, pre["in_shardings"][0], mesh)
+            del params
+            zero(counters)
+            got, p_ms1, s_ms1 = serve_run(
+                lambda t: pre["fn"](pd, SH.distribute({"tokens": t}, pre["in_shardings"][1],
+                                                      mesh)),
+                lambda t, st: dec["fn"](pd, SH.distribute(t, dec["in_shardings"][1], mesh), st))
+            n_sharded = add("mesh: sharded command-r prefill and decode")
+        check(n_plain == want and n_sharded == want,
+              f"mesh: command-r launches {n_sharded} / {n_plain}, want {want}")
+        bitwise = len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+        check(bitwise, "mesh: sharded command-r prefill and decode differ from the unsharded")
+        out["decode"] = {"arch": MESH_DECODE_ARCH, "layers": ccfg.num_layers,
+                         "batch": DECODE_B, "prompt": DECODE_T, "steps": MESH_DECODE_STEPS,
+                         "bitwise_equal": bitwise, "launches_per_prefill": {
+                             "rmsnorm": norms_per_pass(ccfg),
+                             "flash_attention_fwd": ccfg.num_layers},
+                         "prefill_ms": {"unsharded": p_ms0, "sharded": p_ms1},
+                         "decode_ms_median": {"unsharded": s_ms0, "sharded": s_ms1}}
+        emit("mesh_decode", card=smi, mesh=[1, 1], **out["decode"])
+        del pd, got, ref
+        torch.cuda.empty_cache()
     finally:
+        for name in ("mesh_prefill", "mesh_decode"):
+            INPUT_SHAPES.pop(name, None)
         INPUT_SHAPES.pop("train_4k_b1", None)
         moe.set_expert_parallel(False)
         close_local_mesh()
@@ -2934,7 +3046,11 @@ def main() -> int:
                  ((DECODE_B * (PATCHES + DECODE_T), 5120), 1, torch.bfloat16, "pixtral prefill"),
                  ((DECODE_B, 7168), 1, torch.bfloat16, "kimi-k2 decode step"),
                  ((DECODE_B, 1600), 1, torch.bfloat16, "hymba decode step"),
-                 ((DECODE_B, 5120), 1, torch.bfloat16, "pixtral decode step")]
+                 ((DECODE_B, 5120), 1, torch.bfloat16, "pixtral decode step"),
+                 # mistral-large-123b's hidden width (the kernel's warp
+                 # path) at prefill and at a decode step
+                 ((DECODE_B * DECODE_T, 12288), 1, torch.bfloat16, "mistral prefill"),
+                 ((DECODE_B, 12288), 1, torch.bfloat16, "mistral decode step")]
     for (shape, models, dtype, label) in rms_cases:
         d = shape[-1]
         x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -3030,6 +3146,11 @@ def main() -> int:
          torch.bfloat16, False, True, 1024, 0.0, None, S, "hymba prefill"),
         (DECODE_B, 32, 8, PATCHES + DECODE_T, PATCHES + DECODE_T, 128, torch.bfloat16, False,
          True, 0, 0.0, None, S, "pixtral prefill"),
+        # the decode phase's mistral-large-123b prefill: G = 96 / 8 = 12, so
+        # a 64-row stacked block holds 5 1/3 positions (command-r's, 64/8,
+        # is kimi-k2's row)
+        (DECODE_B, 96, 8, DECODE_T, DECODE_T, 128, torch.bfloat16, False, True, 0, 0.0, None, S,
+         "mistral prefill"),
         # hubert-xlarge: 16 heads of 80, bidirectional; its train shape
         # (AUDIO_B x AUDIO_T) in bf16, and the fp32 regime's column split
         # (two 32-column passes and one of 16) at T = 1024
@@ -3681,7 +3802,7 @@ def main() -> int:
                    "pixtral decode step", "qwen3-moe prefill", "hubert train shape",
                    "qwen3-moe train, G=16", "kimi-k2 train, G=8", "hymba train, G=5",
                    "hubert prefill", "pixtral train, G=4", "gemma2-2b train, global",
-                   "gemma2-2b train, local")
+                   "gemma2-2b train, local", "mistral prefill", "mistral decode step")
     per_unit = {name: {"flush_policy_s": 0, "flush_policy_m": 0,
                        "env_step": per_step["env"].get(name, 0),
                        "seq_step": per_step["seq"].get(name, 0),
@@ -3698,7 +3819,9 @@ def main() -> int:
                           for arch, rec in train_families_out.items()},
                        "mesh_flush_policy_s": per_forward.get(name, 0),
                        "mesh_train_step_qwen3-8b": mesh_out["train"]["launches_per_step"].get(
-                           name, 0)}
+                           name, 0),
+                       f"mesh_prefill_{MESH_DECODE_ARCH}":
+                           mesh_out["decode"]["launches_per_prefill"].get(name, 0)}
                 for name in SOURCES}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -3745,7 +3868,7 @@ def main() -> int:
                            round(v["learner_steps_per_s"], 2)] for m, v in mp_out.items()},
          fleet=[round(fleet_out["gateway_rows_per_s"]), round(fleet_out["inproc_rows_per_s"])],
          decode={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
-                     v["consistency"]["float32"], v["card_vs_cpu"]["max_err"]]
+                     v["consistency"]["float32"], v.get("card_vs_cpu", {}).get("max_err")]
                  for a, v in decode_out.items()},
          families={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
                        v["consistency"]["err"], v["card_vs_cpu"]["max_err"]]
@@ -3760,7 +3883,8 @@ def main() -> int:
                "train_peak_mb": round(mesh_out["train"]["peak_mb"]),
                "max_err": [mesh_out["serve"]["max_abs_err"],
                            mesh_out["train"]["max_abs_err"]["grads"],
-                           mesh_out["moe"]["max_abs_err"]["grads"]]},
+                           mesh_out["moe"]["max_abs_err"]["grads"]],
+               "decode_bitwise_equal": mesh_out["decode"]["bitwise_equal"]},
          seconds=time.perf_counter() - t_start, phase_seconds=laps)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -44,7 +44,13 @@ explicit:
     (`local_rows`), and inside `data_parallel(...)` every sum over the
     batch (`batch_sum`) spans the data axes, so the loss on each rank is
     the global loss, as GSPMD computes it; the MoE routes each rank's own
-    tokens (`models/moe.py`);
+    tokens against the global capacity (`models/moe.py`);
+  - a prefill or a decode step runs in the same scope, told how its KV
+    caches lie over 'model' (`cache_mode`, from `state_shardings`' specs):
+    a rank's caches hold its KV heads, its block of the cache slots
+    (attention over them merged across 'model' by log-sum-exp,
+    `model_max` and `model_sum`) or every head (`cache_heads`,
+    `cache_slots`), and they cross the scope as this rank's shards;
   - the backward is seeded with 1 / world on every rank and each
     collective's backward is its adjoint (all-reduce <-> all-reduce,
     all-gather <-> reduce-scatter); `reduce_grads` then sums each grad
@@ -285,6 +291,24 @@ def grouped_obs_sharding(mesh, rows: int) -> tuple:
     return _fit(mesh, (1, rows), (None, data_axes(mesh)))
 
 
+def is_kv(name: str, nd: int) -> bool:
+    """Whether the decode-state leaf `name` of rank `nd` is a KV cache's
+    keys or values, (R, B, W, KV, hd)."""
+    return nd == 5 and ("/k" in name or "/v" in name)
+
+
+def cache_mode(state_specs) -> str:
+    """How a decode state's KV caches lie over 'model', read from its
+    specs: 'heads' (KV heads split), 'length' (cache slots split: the
+    context-parallel variant) or 'whole' (replicated)."""
+    for name, spec in spec_items(state_specs).items():
+        if is_kv(name, len(spec)):
+            if spec[3] is not None:
+                return "heads"
+            return "length" if spec[2] is not None else "whole"
+    return "whole"
+
+
 def state_shardings(state_shapes: Any, cfg, mesh, *, shard_cache_len: bool = False):
     """Decode-state specs. KV caches are (R, B, W, KV, hd): batch over data
     axes; KV heads over 'model' when divisible, else optionally the cache
@@ -295,7 +319,7 @@ def state_shardings(state_shapes: Any, cfg, mesh, *, shard_cache_len: bool = Fal
 
     def one(name, leaf):
         shape, nd = tuple(leaf.shape), leaf.dim()
-        if nd == 5 and ("/k" in name or "/v" in name):
+        if is_kv(name, nd):
             if shape[3] % model == 0:
                 return _fit(mesh, shape, (None, dp, None, "model", None))
             if shard_cache_len:
@@ -411,15 +435,21 @@ def gather(t, keep: Sequence[str] = ()):
     return t.redistribute(t.device_mesh, target).to_local(grad_placements=grad)
 
 
-def local_rows(t):
-    """This rank's block of an input DTensor laid out over the data axes
-    (and replicated elsewhere) as a plain tensor; a plain tensor as it is."""
+def local_rows(t, keep_model: bool = False):
+    """This rank's block of an input DTensor laid out over the data axes as
+    a plain tensor: a dim sharded over 'model' is gathered whole, or with
+    `keep_model` kept as this rank's shard (a KV cache split over
+    'model'). A plain tensor is returned as it is."""
     if not is_dtensor(t):
         return t
-    names = t.device_mesh.mesh_dim_names
-    if all(n in AXES[:2] or p.is_replicate() for n, p in zip(names, t.placements)):
-        return t.to_local()              # already this rank's rows: nothing to move
-    return gather(t, keep=AXES[:2])
+    local = t.to_local()
+    if keep_model:
+        return local
+    mesh = t.device_mesh
+    for name, p in zip(mesh.mesh_dim_names, t.placements):
+        if name not in AXES[:2] and p.is_shard():
+            local = all_gather(local, p.dim, mesh, (name,))
+    return local
 
 
 def reduce_grads(grads, params, mesh):
@@ -521,6 +551,15 @@ def axis_index(mesh, axis) -> int:
     return mesh.get_local_rank(axis)
 
 
+def data_index(mesh, axes) -> int:
+    """This rank's index over the named mesh dims, outer-major (pod, then
+    data): its block's place in what `all_gather` over them concatenates."""
+    sizes, idx = mesh_sizes(mesh), 0
+    for ax in (a for a in sizes if a in axes):
+        idx = idx * sizes[ax] + axis_index(mesh, ax)
+    return idx
+
+
 def batch_axes(specs) -> Tuple[str, ...]:
     """The data axes the leading dim of a batch's specs is sharded over
     (() when replicated): what `data_parallel` reduces over."""
@@ -536,13 +575,19 @@ class _Params:
     """How this rank computes with the params of a sharded run: which
     slice of each leaf it uses, gathered from its shards at use."""
 
-    def __init__(self, mesh, specs, cfg, tp: bool, ep: bool):
+    def __init__(self, mesh, specs, cfg, tp: bool, ep: bool, cache=None):
         self.mesh, self.specs, self.cfg = mesh, specs, cfg
         self.M = mesh_sizes(mesh).get("model", 1)
         self.m = axis_index(mesh, "model") if self.M > 1 else 0
         M, H, KV = self.M, cfg.num_heads, cfg.num_kv_heads
         self.tp = tp and M > 1
-        self.attn_tp = self.tp and H % M == 0 and (KV % M == 0 or M % KV == 0)
+        self.cache = cache if M > 1 else None
+        # a cache split by length keeps every head on every rank, so its
+        # attention blocks run whole
+        self.attn_tp = (self.tp and H % M == 0 and (KV % M == 0 or M % KV == 0)
+                        and self.cache != "length")
+        # a cache replicated over 'model' holds every KV head: wk and wv whole
+        self.kv_whole = self.attn_tp and self.cache == "whole"
         self.ep = ep and M > 1 and cfg.moe is not None and cfg.moe.num_experts % M == 0
 
     def slice_of(self, name: str, nd: int):
@@ -551,7 +596,8 @@ class _Params:
           - experts (expert parallelism): E/M of them;
           - attention (when the heads split): H/M query heads, the key and
             value heads they read (KV/M of them, or the one they share
-            when KV < M), and wo's rows for those heads;
+            when KV < M; all of them over a decode cache that keeps every
+            head), and wo's rows for those heads;
           - MLP and shared expert: ff/M columns of up and gate, the same
             rows of down (the port's MLPs have no bias);
           - embed table rows and lm_head columns: V/M of the vocab."""
@@ -568,6 +614,8 @@ class _Params:
                 return (-1, M, m)
             if parts[-2] == "wo":
                 return (-2, M, m) if parts[-1] == "w" else None
+            if self.kv_whole:
+                return None
             KV = cfg.num_kv_heads
             return (-1, M, m) if KV % M == 0 else (-1, KV, m // (M // KV))
         if ("mlp" in parts or "shared" in parts) and parts[-2] in ("up", "gate", "down"):
@@ -646,16 +694,19 @@ def data_parallel(mesh, axes):
     return restored(_State(mesh, axes, st.params))
 
 
-def param_scope(mesh, specs, cfg, *, tp: bool = True, ep: bool = False):
+def param_scope(mesh, specs, cfg, *, tp: bool = True, ep: bool = False, cache=None):
     """Within this scope (per thread) the model's params are this rank's
     local shards, laid out by `specs` ({path: spec}), and each block of
     code gathers what it uses at use (`materialize`): a repeat unit's
     weights for that unit only, so a rank holds its shards and one unit
     gathered. With `tp` the 'model' axis splits the compute (tensor
     parallelism: `_Params.slice_of`); `ep` keeps each rank's experts
-    (expert parallelism)."""
+    (expert parallelism). `cache` (`cache_mode`: 'heads', 'length' or
+    'whole') is how the decode caches lie over 'model' in a prefill or a
+    decode step; `cache_heads` and `cache_slots` size this rank's."""
     st = capture()
-    return restored(_State(st.dp_mesh, st.dp_axes, _Params(mesh, specs, cfg, tp, ep)))
+    return restored(_State(st.dp_mesh, st.dp_axes,
+                           _Params(mesh, specs, cfg, tp, ep, cache)))
 
 
 def materialize(tree, prefix=(), index_dim=None):
@@ -671,6 +722,12 @@ def materialize(tree, prefix=(), index_dim=None):
 def dp_mesh():
     """The mesh of the data-parallel scope, or None."""
     return capture().dp_mesh
+
+
+def dp_axes() -> Tuple[str, ...]:
+    """The data axes the batch of the data-parallel scope is split over
+    (() outside one, or when the batch is replicated)."""
+    return capture().dp_axes
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -689,6 +746,36 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum the partial results of a tensor-parallel block over 'model'."""
     p = capture().params
     return x if p is None else all_reduce_sum(x, p.mesh, ("model",))
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of every model rank's x (gathered, then
+    reduced: the collectives stay those the sum and the gather use)."""
+    p = capture().params
+    if p is None or p.M == 1:
+        return x
+    return all_gather(x[None], 0, p.mesh, ("model",)).amax(0)
+
+
+def cache_heads(cfg) -> int:
+    """The KV heads this rank's decode caches hold: KV/M when the scope
+    splits them over 'model', else all of them."""
+    p = capture().params
+    if p is not None and p.cache == "heads":
+        return cfg.num_kv_heads // p.M
+    return cfg.num_kv_heads
+
+
+def cache_slots(cache_len: int) -> Tuple[int, int]:
+    """(first, count): the slots of a `cache_len`-slot decode cache whose
+    keys and values this rank holds, a contiguous block of cache_len/M
+    when the scope splits the cache length over 'model' (the
+    context-parallel variant), else all of them."""
+    p = capture().params
+    if p is not None and p.cache == "length":
+        n = cache_len // p.M
+        return p.m * n, n
+    return 0, cache_len
 
 
 def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -8,13 +8,16 @@ meshes) `fn` is the single-device step, which the dry-run evaluates on the
 meta args. On a `DeviceMesh` `fn` runs sharded: given DTensor params, state
 and batch laid out by `in_shardings`, each rank keeps its param shards and
 computes on its rows of the batch, and `fn` returns DTensors laid out by
-`out_shardings`. The train steps gather one repeat unit's weights at a
-time (FSDP over the data axes) and split the compute over 'model' (tensor
-parallelism; expert parallelism with `moe_ep`): `learners/steps.py`.
-Prefill and decode gather one unit at a time too, whole over 'model', so
-each model rank computes the unit in full: their caches keep every head.
-The kernels it reaches (flash forward, dq, dk/dv, RMSNorm, the scan) see
-plain local tensors.
+`out_shardings`. Every step gathers one repeat unit's weights at a time
+(FSDP over the data axes) and splits the compute over 'model' (tensor
+parallelism: the heads, the MLP's hidden dim, the vocab; expert
+parallelism with `moe_ep`): the train steps in `learners/steps.py`,
+prefill and decode in `_spmd`. Their KV caches lie as `repro`'s
+`state_shardings` lays them out: a rank holds its KV heads when they
+split over 'model', its block of the cache slots with `shard_cache_len`
+(attention merged across 'model' by log-sum-exp), or every head; the state
+crosses `_spmd` as those shards, with no gather. The kernels it reaches
+(flash forward, dq, dk/dv, RMSNorm, the scan) see plain local tensors.
 """
 from __future__ import annotations
 
@@ -45,16 +48,20 @@ def _replicate_tree(tree):
     return tree_map(lambda t: (None,) * t.dim(), tree)
 
 
-def _spmd(fn, cfg, mesh, out_specs):
+def _spmd(fn, cfg, mesh, out_specs, state_specs):
     """Run a row-parallel `fn` (prefill, decode) on a DeviceMesh: params as
-    this rank's shards in a param scope without tensor parallelism (each
-    unit gathered at use), every other input as this rank's rows, and each
-    output wrapped back as a DTensor laid out by its spec (the rows are
-    this rank's data shard; a 'model'-sharded dim keeps this rank's
-    slice)."""
+    this rank's shards in a tensor-parallel param scope (each unit
+    gathered at use over the data axes, its 'model' slice kept), the KV
+    caches as this rank's shards of them (`sharding.cache_mode` of
+    `state_specs`: its KV heads, its block of slots, or whole), every
+    other input as this rank's rows (a 'model'-sharded dim gathered), and
+    each output wrapped back as a DTensor laid out by its spec: a KV cache
+    is this rank's shard already; any other 'model'-sharded dim (RWKV6's
+    and Mamba's states, computed whole) keeps this rank's slice."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
+    cache = SH.cache_mode(state_specs)
 
-    def wrap(spec, t):
+    def wrap(name, spec, t):
         local = t
         pl = []
         for axis, size in SH.mesh_sizes(mesh).items():
@@ -64,15 +71,17 @@ def _spmd(fn, cfg, mesh, out_specs):
                 pl.append(Replicate())
                 continue
             pl.append(Shard(dim))
-            if axis == "model":                       # a slice of what every rank holds
+            if axis == "model" and not SH.is_kv(name, t.dim()):   # computed whole here
                 local = local.chunk(size, dim)[SH.axis_index(mesh, axis)]
         return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
 
     def run(params, *inputs, axes):
         local, specs = SH.local_params(params, mesh)
+        rows = SH.map_with_path(
+            lambda name, t: SH.local_rows(t, keep_model=SH.is_kv(name, t.dim())), inputs)
         with SH.data_parallel(mesh, axes), \
-                SH.param_scope(mesh, specs, cfg, tp=False, ep=MOE.expert_parallel()):
-            out = fn(local, *tree_map(SH.local_rows, inputs))
+                SH.param_scope(mesh, specs, cfg, ep=MOE.expert_parallel(), cache=cache):
+            out = fn(local, *rows)
         flat = {}
         for i, spec in enumerate(out_specs):
             flat.update({f"{i}/{k}" if k else str(i): v
@@ -88,7 +97,8 @@ def _zip_specs(tree, flat_specs, fn, prefix=()):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zip_specs(v, flat_specs, fn, prefix + (i,))
                           for i, v in enumerate(tree))
-    return fn(flat_specs[SH.path_str(prefix)], tree)
+    name = SH.path_str(prefix)
+    return fn(name, flat_specs[name], tree)
 
 
 def make_dryrun_step(cfg, shape_name: str, mesh, *, fsdp: bool = True,
@@ -142,7 +152,7 @@ def make_dryrun_step(cfg, shape_name: str, mesh, *, fsdp: bool = True,
         out_shardings = (dp_out[0], dp_out[1], sshard)
         fn = fn_local
         if real:
-            run = _spmd(fn_local, cfg, mesh, out_shardings)
+            run = _spmd(fn_local, cfg, mesh, out_shardings, sshard)
             fn = lambda params, batch: run(params, batch,
                                            axes=SH.batch_axes(bshard))
         return {"kind": kind, "fn": fn, "args": (params_shapes, sp),
@@ -166,7 +176,7 @@ def make_dryrun_step(cfg, shape_name: str, mesh, *, fsdp: bool = True,
     out_shardings = (head_out[0], head_out[1], sshard)
     fn = fn_local
     if real:
-        run = _spmd(fn_local, cfg, mesh, out_shardings)
+        run = _spmd(fn_local, cfg, mesh, out_shardings, sshard)
         fn = lambda params, tokens, state: run(params, tokens, state,
                                                axes=SH.batch_axes(tshard))
     return {"kind": kind, "fn": fn, "args": (params_shapes, sp["tokens"], sp["state"]),

@@ -17,7 +17,19 @@ Tensor parallelism: under a mesh scope a rank may hold a slice of the
 heads (`distributed/sharding._Params.slice_of`): wq's columns for H/M
 query heads, wk's and wv's for the key and value heads those read, and
 wo's rows for them. The head counts are read from the weights, and the
-output projection's partial sums are added over 'model'.
+output projection's partial sums are added over 'model'. A decode cache
+follows `repro`'s `state_shardings` (`sharding.cache_mode`):
+  - KV heads split: the rank's cache holds the KV/M heads it computes;
+  - replicated: every rank computes and caches every KV head (wk and wv
+    whole) and its H/M query heads read the ones they share
+    (`_kv_for_q`);
+  - the length split (context parallel): each rank holds a contiguous
+    block of W/M slots of every head, and the attention block runs
+    whole. A prefill writes each rank's own block (`fill_cache`); a
+    decode step writes the new key on the rank that owns its slot, and
+    each rank attends over its block, the partial results merged across
+    'model' by the log-sum-exp rule (`_attend_split`). The positions stay
+    whole on every rank.
 
 Model axis: with params stacked on a leading model axis M, activations are
 (M, B, T, d); the projections are batched matmuls and attention folds M
@@ -89,11 +101,26 @@ def full_attention(p, cfg, x, positions, *, layer_type="global", return_kv=False
     T = x.shape[-2]
     fold = lambda t: t.reshape(-1, T, *t.shape[-2:])
     window = cfg.sliding_window if (layer_type == "local" and cfg.sliding_window) else 0
-    o = chunked_attend(fold(q), fold(k), fold(v), causal=not cfg.encoder_only,
+    kq, vq = _kv_for_q(cfg, q, k, v)
+    o = chunked_attend(fold(q), fold(kq), fold(vq), causal=not cfg.encoder_only,
                        window=window, cap=cfg.attn_logit_softcap,
                        scale=cfg.head_dim ** -0.5)
     y = _out(p, cfg, o.reshape(*lead, T, -1), q.shape[-2])
     return (y, k, v) if return_kv else y
+
+
+def _kv_for_q(cfg, q, k, v):
+    """The key and value heads that q's heads read: k and v as they are,
+    or, when the rank holds a slice of the query heads over every key and
+    value head (a decode cache replicated over 'model'), the ones its
+    slice reads (head h reads h // G)."""
+    Hl, KVl = q.shape[-2], k.shape[-2]
+    if Hl == cfg.num_heads or KVl < cfg.num_kv_heads:
+        return k, v
+    G = cfg.num_heads // cfg.num_kv_heads
+    lo = SH.model_index() * Hl // G
+    n = -(-Hl // G)
+    return k.narrow(-2, lo, n), v.narrow(-2, lo, n)
 
 
 def _out(p, cfg, o, heads: int):
@@ -103,11 +130,9 @@ def _out(p, cfg, o, heads: int):
     return y if heads == cfg.num_heads else SH.model_sum(y)
 
 
-def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, k_valid=None):
-    """Plain masked GQA attention, `repro`'s `_attend`. q: (B, Tq, H, hd);
-    k, v: (B, Tk, KV, hd); q_pos (B, Tq), k_pos (B, Tk) -> (B, Tq, H, hd).
-    Scores in q's dtype, then an fp32 softmax; the probabilities are cast
-    to v's dtype before p.V."""
+def _scores(q, k, q_pos, k_pos, *, causal, window, cap, scale, k_valid):
+    """Masked GQA scores (B, KV, G, Tq, Tk) in fp32: q . k in q's dtype,
+    scaled, softcapped, NEG_INF where masked."""
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Tq, KV, H // KV, hd)
@@ -122,17 +147,44 @@ def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, k_valid=None):
         mask = mask & (qp - kp < window)
     if k_valid is not None:
         mask = mask & k_valid[:, None, None, None, :]
-    w = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    return s.masked_fill(~mask, NEG_INF)
+
+
+def _attend(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, k_valid=None):
+    """Plain masked GQA attention, `repro`'s `_attend`. q: (B, Tq, H, hd);
+    k, v: (B, Tk, KV, hd); q_pos (B, Tq), k_pos (B, Tk) -> (B, Tq, H, hd).
+    Scores in q's dtype, then an fp32 softmax; the probabilities are cast
+    to v's dtype before p.V."""
+    s = _scores(q, k, q_pos, k_pos, causal=causal, window=window, cap=cap, scale=scale,
+                k_valid=k_valid)
+    w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgts,bskh->btkgh", w.to(v.dtype), v)
-    return o.reshape(B, Tq, H, hd)
+    return o.reshape(q.shape)
+
+
+def _attend_split(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, k_valid):
+    """`_attend` over a cache whose slots are split over 'model', k, v and
+    k_pos being this rank's block: each rank scores its own slots, and
+    the partial results merge by the log-sum-exp rule, the max of the
+    scores over every rank's, then the sums over 'model' of each rank's
+    exp-weighted p.V and of its exp sums (fp32)."""
+    s = _scores(q, k, q_pos, k_pos, causal=causal, window=window, cap=cap, scale=scale,
+                k_valid=k_valid)
+    p = torch.exp(s - SH.model_max(s.amax(-1, keepdim=True)))
+    l = SH.model_sum(p.sum(-1))                                  # (B, KV, G, Tq)
+    o = SH.model_sum(torch.einsum("bkgts,bskh->btkgh", p.to(v.dtype), v).float())
+    return (o / l.permute(0, 3, 1, 2)[..., None]).to(v.dtype).reshape(q.shape)
 
 
 # -- decode with (ring-buffer) KV cache ---------------------------------------
 
 def init_kv_cache(cfg, batch, cache_len, dtype, prefilled: int = 0, device=None):
     """Cache of `cache_len` slots. `prefilled` marks how many are valid
-    (dry-run decode shapes prefill the whole cache)."""
-    k = torch.zeros((batch, cache_len, cfg.num_kv_heads, cfg.head_dim), dtype=dtype,
+    (dry-run decode shapes prefill the whole cache). Under a mesh scope
+    the keys and values hold this rank's heads or block of slots
+    (`sharding.cache_heads`, `cache_slots`); the positions are whole."""
+    slots = SH.cache_slots(cache_len)[1]
+    k = torch.zeros((batch, slots, SH.cache_heads(cfg), cfg.head_dim), dtype=dtype,
                     device=device)
     if prefilled:
         pos = torch.arange(cache_len, dtype=torch.int32, device=device).expand(
@@ -142,6 +194,26 @@ def init_kv_cache(cfg, batch, cache_len, dtype, prefilled: int = 0, device=None)
         pos = torch.full((batch, cache_len), -1, dtype=torch.int32, device=device)
         length = torch.zeros((batch,), dtype=torch.int32, device=device)
     return {"k": k, "v": torch.zeros_like(k), "pos": pos, "length": length}
+
+
+def fill_cache(cache, k, v, positions, start: int, slots):
+    """Write a prompt's keys, values and positions from `start` on into
+    `cache`: position t at slot t mod cache_len, `slots` those slots (on
+    k's device). A rank that holds a block of the slots
+    (`sharding.cache_slots`) writes the keys and values that fall in it;
+    the positions are written whole."""
+    W, T = cache["pos"].shape[1], k.shape[1]
+    cache["pos"][:, slots] = positions[:, start:]
+    lo, n = SH.cache_slots(W)
+    if n == W:
+        cache["k"][:, slots] = k[:, start:]
+        cache["v"][:, slots] = v[:, start:]
+        return
+    host = torch.arange(start, T) % W            # this rank's block, indexed on the host
+    mine = (host >= lo) & (host < lo + n)
+    dst, src = (host[mine] - lo).to(k.device), torch.arange(start, T)[mine].to(k.device)
+    cache["k"][:, dst] = k[:, src]
+    cache["v"][:, dst] = v[:, src]
 
 
 def decode_attention(p, cfg, x, cache, *, layer_type="global", window_override=0,
@@ -159,27 +231,48 @@ def decode_attention(p, cfg, x, cache, *, layer_type="global", window_override=0
     `uniform=True` (every row at the same position, as the serving demo
     decodes) writes every row at row 0's slot with `index_copy_`;
     otherwise each row is scattered to its own slot. The slot stays on the
-    device: no host sync."""
+    device: no host sync. Over a cache whose slots are split over 'model',
+    a rank writes the key and value only where it owns the slot (a
+    select, still without a sync) and attends over its block
+    (`_attend_split`)."""
     B, T, _ = x.shape
     if T != 1:
         raise ValueError(f"decode_attention takes one token per row, got T={T}")
     t = cache["length"]                              # (B,) current position
     q, k, v = _project_qkv(p, cfg, x, t[:, None])
     kc, vc, pc = cache["k"], cache["v"], cache["pos"]
-    slot = (t % kc.shape[1]).long()
+    W = pc.shape[1]
+    lo, n = SH.cache_slots(W)
+    slot = ls = (t % W).long()
+    if n != W:                 # the slot in this rank's block; the old key where not its own
+        ls = (slot - lo).clamp(0, n - 1)
+        own = ((slot >= lo) & (slot < lo + n))[:, None, None, None]
+        if uniform:
+            own, ls = own[:1], ls[:1]
+            k = torch.where(own, k, kc.index_select(1, ls))
+            v = torch.where(own, v, vc.index_select(1, ls))
+        else:
+            b_idx = torch.arange(B, device=x.device)
+            k = torch.where(own, k, kc[b_idx, ls][:, None])
+            v = torch.where(own, v, vc[b_idx, ls][:, None])
     if uniform:
-        s0 = slot[:1]
-        kc.index_copy_(1, s0, k)
-        vc.index_copy_(1, s0, v)
-        pc.index_copy_(1, s0, t[:, None])
+        kc.index_copy_(1, ls[:1], k)
+        vc.index_copy_(1, ls[:1], v)
+        pc.index_copy_(1, slot[:1], t[:, None])
     else:
         b_idx = torch.arange(B, device=x.device)
-        kc[b_idx, slot] = k[:, 0]
-        vc[b_idx, slot] = v[:, 0]
+        kc[b_idx, ls] = k[:, 0]
+        vc[b_idx, ls] = v[:, 0]
         pc[b_idx, slot] = t
 
     window = window_override or (cfg.sliding_window if layer_type == "local" else 0)
-    o = _attend(q, kc, vc, t[:, None], pc, causal=True, window=window,
-                cap=cfg.attn_logit_softcap, scale=cfg.head_dim ** -0.5, k_valid=pc >= 0)
+    kw = dict(causal=True, window=window, cap=cfg.attn_logit_softcap,
+              scale=cfg.head_dim ** -0.5)
+    if n != W:
+        kp = pc[:, lo:lo + n]
+        o = _attend_split(q, kc, vc, t[:, None], kp, k_valid=kp >= 0, **kw)
+    else:
+        kq, vq = _kv_for_q(cfg, q, kc, vc)
+        o = _attend(q, kq, vq, t[:, None], pc, k_valid=pc >= 0, **kw)
     y = _out(p, cfg, o.reshape(B, 1, -1), q.shape[-2])
     return y, {"k": kc, "v": vc, "pos": pc, "length": t + 1}

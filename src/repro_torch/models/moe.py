@@ -15,15 +15,17 @@ reads its maximum back to the host: a decode step stays free of host
 syncs. The capacity is a Python int of the shapes.
 
 Over a mesh (`distributed/sharding.py`), inside a data-parallel scope,
-each rank routes its own tokens: the capacity is per (data shard, expert),
-C = max(int(N_l * k * cf / E), k), as `repro`'s expert-parallel path sets
-it, and the load-balance statistics are averaged over the data axes, so
-the aux loss is the global batch's. When the rank holds E/M of the experts
-(expert parallelism) it runs only those and the combine is a sum over
-'model'; `moe_apply_ep` is that path, `repro`'s `shard_map` body run per
-rank. Without a drop the mesh gives the single device's result; where
-the per-shard capacity drops a choice the global one would keep (or the
-other way round), they differ, as `repro`'s two paths do.
+each rank routes its own tokens and the load-balance statistics are
+averaged over the data axes, so the aux loss is the global batch's. The
+keep/drop decision is `repro`'s GSPMD `moe_apply`'s: the capacity is the
+global one, C = max(int(N * k * cf / E), k) of every data rank's N tokens,
+and a choice's position in its expert is its rank in the global rank-major
+order (`route_global`), so the mesh gives the single device's result
+whatever drops. When the rank holds E/M of the experts (expert
+parallelism) it runs only those and the combine is a sum over 'model';
+`moe_apply_ep` is that path, `repro`'s `shard_map` body run per rank, and
+like it routes with the per-(data shard) capacity,
+C = max(int(N_l * k * cf / E), k).
 """
 from __future__ import annotations
 
@@ -121,27 +123,71 @@ def moe_apply(p, cfg, x):
     return y.reshape(B, T, d), aux
 
 
+def _choices(gates, k: int):
+    """(weight (N, k), expert (N, k)): the top-k gates, renormalised."""
+    topv, topi = torch.topk(gates, k, dim=-1)
+    return topv / (topv.sum(-1, keepdim=True) + 1e-9), topi
+
+
+def _positions(e, buckets: int):
+    """e: (N, k) bucket of each choice. Returns (pos (N, k), counts
+    (buckets,)): each choice's position in its bucket in rank-major order
+    (all rank-0 choices first) from a stable sort, and the choices per
+    bucket."""
+    N, k = e.shape
+    flat_e = e.t().reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(buckets, dtype=torch.long, device=e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(0) - counts
+    pos_sorted = torch.arange(k * N, device=e.device) - starts[flat_e[order]]
+    return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted).reshape(k, N).t(), counts
+
+
 def route_local(gates, k: int, capacity: int, m_idx: int, E_l: int):
     """`route_topk` for model rank `m_idx`'s experts [m_idx * E_l, (m_idx +
     1) * E_l): choices of other ranks' experts are dropped here (their rank
     takes them). Returns (slot (N, k) into an (E_l * capacity + PAD_ROWS)
     buffer, weight (N, k), keep (N, k), counts (E_l + 1,): the local
     experts' choices before capacity, then the other ranks')."""
-    N = gates.shape[0]
-    topv, topi = torch.topk(gates, k, dim=-1)                  # (N, k)
-    topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+    topv, topi = _choices(gates, k)
     local_e = topi - m_idx * E_l
     valid = (local_e >= 0) & (local_e < E_l)
-    flat_e = torch.where(valid, local_e, E_l).t().reshape(-1)  # rank-major
-    order = torch.argsort(flat_e, stable=True)
-    counts = torch.zeros(E_l + 1, dtype=torch.long, device=gates.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = counts.cumsum(0) - counts
-    pos_sorted = torch.arange(k * N, device=gates.device) - starts[flat_e[order]]
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted).reshape(k, N).t()
+    pos, counts = _positions(torch.where(valid, local_e, E_l), E_l + 1)
     keep = valid & (pos < capacity)
     slot = torch.where(keep, local_e * capacity + pos, E_l * capacity)
     return slot, topv, keep, counts
+
+
+def route_global(gates, k: int, capacity_factor: float, mesh, axes):
+    """`route_topk` over the global batch of a data-parallel scope, for
+    this rank's N tokens: the capacity is `repro`'s GSPMD one, max(int(D *
+    N * k * cf / E), k) over the D data ranks' tokens, and a choice's
+    position in its expert is its rank in the global rank-major order: the
+    choices of lower top-k ranks on every data rank, then those of its own
+    top-k rank on earlier data ranks, then its local position. Each data
+    rank's (k, E) choice counts are all-gathered over `axes` to place them.
+
+    Returns (slot (N, k), weight (N, k), keep (N, k), counts (E,) before
+    capacity, rows). A rank's kept choices are a prefix of each expert's
+    local order and number fewer than min(capacity, N), so `slot` indexes a
+    local (E * rows + PAD_ROWS) buffer, rows = min(capacity, N), E * rows
+    being the drop bucket."""
+    N, E = gates.shape
+    topv, topi = _choices(gates, k)
+    pos, counts = _positions(topi, E)
+    mine = torch.zeros((k, E), dtype=torch.long, device=gates.device).scatter_add_(
+        1, topi.t(), torch.ones_like(topi.t()))
+    every = SH.all_gather(mine[None], 0, mesh, axes)             # (D, k, E)
+    D, d = every.shape[0], SH.data_index(mesh, axes)
+    total = every.sum(0)
+    before = (total.cumsum(0) - total) + every[:d].sum(0) - (mine.cumsum(0) - mine)
+    gpos = pos + before.gather(1, topi.t()).t()
+    capacity = max(int(D * N * k * capacity_factor / E), k)
+    keep = gpos < capacity
+    rows = min(capacity, N)
+    slot = torch.where(keep, topi * rows + pos, E * rows)
+    return slot, topv, keep, counts, rows
 
 
 def _local_experts(t, E, E_l, m_idx):
@@ -195,9 +241,10 @@ def _hidden_slice(mlp, M, m):
 
 def _moe_ranked(p, cfg, x, mesh, ep: bool):
     """The MoE on one rank of a mesh: this rank's tokens, routed with the
-    per-shard capacity. `p` holds plain tensors: the router whole, the
-    experts whole or (`ep`) this model rank's E/M, the shared expert whole
-    or a slice of its hidden dim."""
+    global capacity (`route_global`), or with `ep` with the per-shard one
+    over this model rank's E/M experts. `p` holds plain tensors: the
+    router whole, the experts whole or (`ep`) this model rank's E/M, the
+    shared expert whole or a slice of its hidden dim."""
     e = cfg.moe
     sizes = SH.mesh_sizes(mesh)
     M = sizes.get("model", 1) if ep else 1
@@ -211,11 +258,15 @@ def _moe_ranked(p, cfg, x, mesh, ep: bool):
     xl = SH.local_rows(x)
     B_l, T, d = xl.shape
     N_l = B_l * T
-    C = max(int(N_l * k * e.capacity_factor / E), k)
     xf = xl.reshape(N_l, d)
 
     gates = torch.softmax(xf.float() @ p["router"]["w"].float(), dim=-1)
-    slot, topv, keep, counts = route_local(gates, k, C, m_idx, E_l)
+    if ep:
+        C = max(int(N_l * k * e.capacity_factor / E), k)
+        slot, topv, keep, counts = route_local(gates, k, C, m_idx, E_l)
+    else:
+        slot, topv, keep, counts, C = route_global(gates, k, e.capacity_factor, mesh,
+                                                   SH.dp_axes())
 
     buf = xl.new_zeros((E_l * C + PAD_ROWS, d))
     buf[slot.reshape(-1)] = xf[torch.arange(N_l * k, device=xl.device) // k]

@@ -28,6 +28,12 @@ that order. The decode state keeps `repro`'s layout: `blocks` (and
 length; hybrid `conv{j}`, `ssm{j}`; rwkv `tm_prev`, `tm_S`, `cm_prev`),
 each leaf stacked on the leading repeat axis, and `length` (B,) is the
 next absolute position. Decode has no model axis (`repro`'s has none).
+
+Under a mesh scope (`launch/steps.py`'s sharded prefill and decode) the
+'model' axis splits the compute as in training, and each rank's KV caches
+hold its KV heads, or its block of the cache slots, as `repro`'s
+`state_shardings` lays the caches out (`models/attention.py`); RWKV6's and
+the Mamba heads' states are computed whole on every model rank.
 """
 from __future__ import annotations
 
@@ -367,7 +373,8 @@ def _init_unit_cache(cfg, batch, cache_len, dtype, prefilled=0, device=None):
 
 def _stacked_cache(cfg, batch, cache_len, dtype, prefilled, device, reps):
     """`reps` repeat units' caches, each leaf stacked on a leading repeat
-    axis (the layout `jax.vmap` gives `repro`'s)."""
+    axis (the layout `jax.vmap` gives `repro`'s). Under a mesh scope the
+    KV caches hold what this rank computes (`attention.init_kv_cache`)."""
     one = _init_unit_cache(cfg, batch, cache_len, dtype, prefilled, device)
     return tree_map(lambda a: a.expand(reps, *a.shape).contiguous(), one)
 
@@ -477,10 +484,8 @@ def prefill(params, cfg, batch, *, sliding=False, reserve=64):
             def attend(j, lt, p, h, r=r):
                 y, k, v = A.full_attention(p, cfg, h, positions, layer_type=lt,
                                            return_kv=True)
-                kc = _index(stacked[f"kv{j}"], r, False)
-                kc["k"][:, slots] = k[:, start:]
-                kc["v"][:, slots] = v[:, start:]
-                kc["pos"][:, slots] = positions[:, start:]
+                A.fill_cache(_index(stacked[f"kv{j}"], r, False), k, v, positions, start,
+                             slots)
                 return y
             io = {}
             unit = SH.materialize(_index(params[group], r, False), (group,), 0)

@@ -16,7 +16,9 @@ joined with a deadline. Cases:
   (iii) `make_dryrun_step`'s train step on (2, 2), FSDP on: policy-m at a
         tiny train shape and qwen3-moe `.smoke()` with `moe_ep=True`, fp32,
         loss and every grad leaf within 1e-4 of the single-device port and
-        of `repro`'s step;
+        of `repro`'s step; and qwen3-moe without `moe_ep` on (2, 1) and
+        (2, 2), at its own capacity factor, on a batch whose data shards
+        route unevenly: the global capacity's drops, as GSPMD's;
   (iv)  `InfServer(mesh=make_local_mesh("cpu"))` at world 1 against
         `mesh=None`, `repro`'s local-mesh sequence; and the dry-run
         factory's prefill and decode fns on (2, 2) against the single
@@ -392,15 +394,14 @@ def _no_drops(cfg, params, batch):
             assert int(torch.bincount(top, minlength=e.num_experts).max()) <= c_l
 
 
-@pytest.mark.timeout(120)
-@pytest.mark.parametrize("arch", ["tleague-policy-m", "qwen3-moe-235b-a22b"])
-def test_sharded_train_step_matches_single_device_and_repro(arch, tmp_path):
+def _reference_steps(cfg, jcfg, params_np, batch_np):
+    """(loss, grads) of the single-device port's seq train step and of
+    `repro`'s (in interpret mode), the grads in `jax.tree_util`'s leaf
+    order."""
     import jax
     import jax.numpy as jnp
-    from repro.configs import get_arch as jax_arch
     from repro.kernels import dispatch as jax_dispatch
     from repro.learners.steps import build_seq_train_step as jax_seq_step
-    from repro.models import init_params as jax_init
     from repro.optim import Optimizer as JaxOptimizer
     from repro.optim import adamw as jax_adamw
     from repro_torch.distributed import sharding as SH
@@ -408,23 +409,7 @@ def test_sharded_train_step_matches_single_device_and_repro(arch, tmp_path):
     from repro_torch.learners import build_seq_train_step
     from repro_torch.params import from_reference
 
-    cfg = _train_cfg(arch)
-    jcfg = jax_arch(arch)
-    jcfg = jcfg.smoke() if jcfg.moe else dataclasses.replace(jcfg, max_position=1 << 20)
-    jcfg = dataclasses.replace(jcfg, compute_dtype="float32", param_dtype="float32")
-    params_np = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(3), jcfg))
-    batch_np = _train_batch(cfg)
     tb = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    if cfg.moe:
-        _no_drops(cfg, from_reference(params_np, "cpu"), tb)
-
-    out = tmp_path / "out.npz"
-    _spawn(_train_worker, 4, str(tmp_path / "store"), arch, params_np, batch_np, str(out))
-    z = np.load(out)
-    loss1 = float(z["arr_0"])
-    g1 = [z[f"arr_{i}"] for i in range(1, len(z.files))]
-
-    # the single-device port (grads in `jax.tree_util`'s leaf order)
     l0, _, g0 = build_seq_train_step(cfg, make_optimizer(cfg)).value_and_grad(
         from_reference(params_np, "cpu"), tb)
     g0 = [g.numpy() for _, g in SH.leaves_with_path(g0)]
@@ -435,13 +420,140 @@ def test_sharded_train_step_matches_single_device_and_repro(arch, tmp_path):
     with jax_dispatch.force("interpret"):
         _, _, jm = jax_seq_step(jcfg, grab, jit=True)(
             asj(params_np), grab.init(asj(params_np)), asj(batch_np))
-    jg = [np.asarray(g) for g in jax.tree.leaves(jm["grads"])]
-    np.testing.assert_allclose(loss1, float(l0), atol=TOL, rtol=TOL)
+    return float(l0), g0, [np.asarray(g) for g in jax.tree.leaves(jm["grads"])]
+
+
+def _check_step(out, cfg, jcfg, params_np, batch_np):
+    """The sharded step's loss and grads (rank 0's `.npz`) within 1e-4 of
+    the single-device port's and `repro`'s."""
+    z = np.load(out)
+    loss1 = float(z["arr_0"])
+    g1 = [z[f"arr_{i}"] for i in range(1, len(z.files))]
+    l0, g0, jg = _reference_steps(cfg, jcfg, params_np, batch_np)
+    np.testing.assert_allclose(loss1, l0, atol=TOL, rtol=TOL)
     assert len(g1) == len(g0) == len(jg)
     for a, b, c in zip(g1, g0, jg):
         scale = max(1.0, float(np.abs(b).max()))
         np.testing.assert_allclose(a, b, atol=TOL * scale, rtol=0)
         np.testing.assert_allclose(a, c, atol=TOL * scale, rtol=0)
+
+
+def _jax_cfg(arch):
+    from repro.configs import get_arch as jax_arch
+    jcfg = jax_arch(arch)
+    jcfg = jcfg.smoke() if jcfg.moe else dataclasses.replace(jcfg, max_position=1 << 20)
+    return dataclasses.replace(jcfg, compute_dtype="float32", param_dtype="float32")
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("arch", ["tleague-policy-m", "qwen3-moe-235b-a22b"])
+def test_sharded_train_step_matches_single_device_and_repro(arch, tmp_path):
+    import jax
+    from repro.models import init_params as jax_init
+    from repro_torch.params import from_reference
+
+    cfg, jcfg = _train_cfg(arch), _jax_cfg(arch)
+    params_np = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(3), jcfg))
+    batch_np = _train_batch(cfg)
+    if cfg.moe:
+        _no_drops(cfg, from_reference(params_np, "cpu"),
+                  {k: torch.from_numpy(v) for k, v in batch_np.items()})
+
+    out = tmp_path / "out.npz"
+    _spawn(_train_worker, 4, str(tmp_path / "store"), arch, params_np, batch_np, str(out))
+    _check_step(out, cfg, jcfg, params_np, batch_np)
+
+
+# -- the MoE's global capacity under a data-parallel scope ----------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def _with_capacity(cfg):
+    """qwen3-moe's `.smoke()` (which lifts the capacity factor to 8 so that
+    smoke routing never drops) at the arch's own capacity factor, 1.25."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+
+
+def _uneven_batch(cfg):
+    """`_train_batch` with data shard 0's rows (the first half) one token
+    repeated: every position of those rows has the same hidden state in
+    the first layer (attention over equal values returns that value), so
+    all their choices go to the same top-k experts."""
+    batch = _train_batch(cfg)
+    B = batch["tokens"].shape[0]
+    batch["tokens"][:B // 2] = 7
+    return batch
+
+
+def _drops_differ(cfg, params, batch, data=2):
+    """Some MoE layer of the single-device forward keeps a choice that the
+    per-(data shard) capacity would drop: the parent's rule differs here."""
+    from repro_torch.models import forward_train, moe
+    seen = []
+    real = moe.route_topk
+
+    def spy(gates, k, capacity):
+        out = real(gates, k, capacity)
+        seen.append((gates.detach(), out[2]))
+        return out
+    moe.route_topk = spy
+    try:
+        forward_train(params, cfg, {"tokens": batch["tokens"]})
+    finally:
+        moe.route_topk = real
+    e = cfg.moe
+    differ = False
+    for gates, keep in seen:
+        for shard, kept in zip(gates.chunk(data), keep.chunk(data)):
+            c_l = max(int(shard.shape[0] * e.experts_per_token * e.capacity_factor
+                          / e.num_experts), e.experts_per_token)
+            differ |= not torch.equal(real(shard, e.experts_per_token, c_l)[2], kept)
+    return differ
+
+
+def _capacity_worker(rank, world, store, shape, params_np, batch_np, out):
+    _init(rank, world, store)
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_dryrun_step
+    from repro_torch.params import from_reference
+    _tiny_shape()
+    cfg = _with_capacity(_train_cfg(MOE_ARCH))
+    mesh = make_local_mesh("cpu", shape=shape)
+    built = make_dryrun_step(cfg, TINY[0], mesh, fsdp=True, moe_ep=False)
+    _, _, bshard = built["in_shardings"]
+    params = SH.distribute(from_reference(params_np, "cpu"), built["in_shardings"][0], mesh)
+    batch = SH.distribute({k: torch.from_numpy(v) for k, v in batch_np.items()}, bshard, mesh)
+    loss, _, grads = built["fn"].value_and_grad(params, batch)
+    full = [g.full_tensor().numpy() for _, g in SH.leaves_with_path(grads)]
+    if rank == 0:
+        np.savez(out, loss.numpy(), *full)
+    _done()
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
+def test_sharded_moe_routes_with_the_global_capacity(shape, tmp_path):
+    """Without expert parallelism the sharded MoE keeps and drops what
+    `repro`'s GSPMD `moe_apply` does over the global batch: on a batch whose
+    data shards route so unevenly that the per-shard capacity would drop a
+    choice the global one keeps, the sharded train step's loss and grads
+    equal the single-device port's and `repro`'s."""
+    import jax
+    from repro.models import init_params as jax_init
+    from repro_torch.params import from_reference
+
+    cfg = _with_capacity(_train_cfg(MOE_ARCH))
+    jcfg = _with_capacity(_jax_cfg(MOE_ARCH))
+    params_np = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(3), jcfg))
+    batch_np = _uneven_batch(cfg)
+    assert _drops_differ(cfg, from_reference(params_np, "cpu"),
+                         {k: torch.from_numpy(v) for k, v in batch_np.items()})
+    out = tmp_path / "out.npz"
+    _spawn(_capacity_worker, shape[0] * shape[1], str(tmp_path / "store"), shape,
+           params_np, batch_np, str(out))
+    _check_step(out, cfg, jcfg, params_np, batch_np)
 
 
 # -- the dry-run factory's prefill and decode fns on (2, 2) ---------------------------

@@ -17,7 +17,16 @@ NCCL refuses two ranks on one device, so this tries gloo on CUDA tensors:
      MLP's hidden dim and the vocab; two experts' halves), each held
      against the single rank's result on the same card within 1e-4 of
      max(1, max |.|). The DTensors are built and read back with
-     from_local/to_local and the plain collectives.
+     from_local/to_local and the plain collectives;
+  3. runs the factory's prefill and decode fns (tensor-parallel serving)
+     for command-r-35b and mistral-large-123b at full width, 2 layers, fp32
+     compute over their bf16 params: a 4 x 256 prefill and 4 uniform
+     decode steps of seeded tokens on the (1, 2) mesh, each rank's KV
+     caches holding 4 of the 8 KV heads. The last position's logits and
+     values, each step's, and every leaf of the final state are held
+     against the single rank's `prefill` and `decode_step` within 1e-4 of
+     max(1, max |.|), and each rank's cache bytes printed beside the
+     single rank's.
 
     python3 tools/mesh_two_ranks.py [--probe-only]
 
@@ -40,6 +49,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 TOL = 1e-4
 T = 4096
+SERVE_ARCHS = ("command-r-35b", "mistral-large-123b")
+SERVE_LAYERS, SERVE_B, SERVE_T, SERVE_STEPS = 2, 4, 256, 4
 
 
 def rel_err(got, want) -> float:
@@ -224,10 +235,59 @@ def moe_step(dev, mesh):
     return y, aux, [SH.all_reduce_sum(g, mesh, ("data", "model")) for g in grads]
 
 
+def serve_steps(dev, arch, mesh):
+    """(outputs, KV cache bytes on this rank) of `arch`'s prefill and
+    decode at full width, SERVE_LAYERS layers, fp32 compute: through the
+    dry-run factory's fns on `mesh`, or the unsharded `prefill` and
+    `decode_step` (None). outputs: the last position's logits and values,
+    each step's, and every leaf of the final state, as full tensors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, InputShape, get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import make_dryrun_step
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=SERVE_LAYERS, compute_dtype="float32")
+    params = init_params(torch.Generator(device=dev).manual_seed(28), cfg)
+    toks = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_T + SERVE_STEPS))).to(dev)
+    steps = range(SERVE_T, SERVE_T + SERVE_STEPS)
+    kv_bytes = lambda st: sum(t.numel() * t.element_size() for n, t in SH.leaves_with_path(st)
+                              if SH.is_kv(SH.path_str(n), t.dim()))
+    if mesh is None:
+        lg, v, st = prefill(params, cfg, {"tokens": toks[:, :SERVE_T]})
+        res = [lg[:, -1], v[:, -1]]
+        del lg
+        for i in steps:
+            dl, dv, st = decode_step(params, cfg, toks[:, i:i + 1], st, uniform=True)
+            res += [dl, dv]
+        return res + [t for _, t in SH.leaves_with_path(st)], kv_bytes(st)
+    INPUT_SHAPES["two_ranks_prefill"] = InputShape("two_ranks_prefill", SERVE_T, SERVE_B,
+                                                   "prefill")
+    INPUT_SHAPES["two_ranks_decode"] = InputShape("two_ranks_decode", SERVE_T + 64, SERVE_B,
+                                                  "decode")
+    pre = make_dryrun_step(cfg, "two_ranks_prefill", mesh)
+    dec = make_dryrun_step(cfg, "two_ranks_decode", mesh)
+    pd = from_local(params, pre["in_shardings"][0], mesh)
+    del params
+    lg, v, st = pre["fn"](pd, from_local({"tokens": toks[:, :SERVE_T]}, pre["in_shardings"][1],
+                                         mesh))
+    res = [lg, v]
+    for i in steps:
+        dl, dv, st = dec["fn"](pd, from_local(toks[:, i:i + 1], dec["in_shardings"][1], mesh), st)
+        res += [dl, dv]
+    local = kv_bytes(SH.map_with_path(lambda _, t: t.to_local(), st))
+    return [full(t, mesh) for t in res] + [full(t, mesh) for _, t in SH.leaves_with_path(st)], \
+        local
+
+
 def rank_main(rank, world, store):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_local_mesh
 
     dev = torch.device("cuda", 0)
@@ -261,7 +321,36 @@ def rank_main(rank, world, store):
             print(json.dumps({"two_ranks": "moe_apply_ep", "arch": "qwen3-moe-235b-a22b",
                               "mesh": [1, world], "max_abs_err": errs, "tol": TOL}),
                   flush=True)
+            del y0, g0
+        del y1, g1
+        torch.cuda.empty_cache()
         dist.barrier()
+        for arch in SERVE_ARCHS:
+            with torch.no_grad():
+                got, nbytes = serve_steps(dev, arch, mesh)
+                each = SH.all_gather(torch.tensor([nbytes], device=dev), 0, mesh, ("model",))
+                torch.cuda.empty_cache()
+                if rank == 0:
+                    want, single = serve_steps(dev, arch, None)
+                    floats = [(a, b) for a, b in zip(got, want) if b.is_floating_point()]
+                    ints_equal = all(torch.equal(a, b) for a, b in zip(got, want)
+                                     if not b.is_floating_point())
+                    errs = {"outputs": max(rel_err(a, b) for a, b in floats[:2 + 2 * SERVE_STEPS]),
+                            "state": max(rel_err(a, b) for a, b in floats[2 + 2 * SERVE_STEPS:])}
+                    ok = len(got) == len(want) and ints_equal and all(e <= TOL
+                                                                      for e in errs.values())
+                    bad += not ok
+                    print(json.dumps({"two_ranks": "prefill_and_decode", "arch": arch,
+                                      "layers": SERVE_LAYERS, "batch": SERVE_B,
+                                      "prompt": SERVE_T, "steps": SERVE_STEPS,
+                                      "mesh": [1, world], "max_abs_err": errs,
+                                      "positions_equal": ints_equal, "tol": TOL,
+                                      "cache_bytes": {"each_rank": each.tolist(),
+                                                      "single_rank": single}}), flush=True)
+                    del want
+                del got
+                torch.cuda.empty_cache()
+            dist.barrier()
         return int(bad > 0)
     finally:
         dist.destroy_process_group()
