@@ -111,7 +111,16 @@ drives the port's paths on the card:
   serving) for command-r-35b at full width (2 of 40 layers) bitwise
   against the unsharded prefill and decode. The multiprocess phase's
   served run is `--served --sharded`, its InfServer on a (1, 1) mesh of the
-  coordinator's card.
+  coordinator's card;
+- mesh_split: `tools/mesh_two_ranks.py --split`, two gloo ranks of the
+  card on a (1, 2) mesh: rwkv6-3b (each rank 20 of the 40 heads) and
+  hymba-1.5b (each rank 1,600 of the 3,200 Mamba channels) prefill 4 x 256
+  and 4 decode steps at full width, 2 layers, fp32, through the factory's
+  fns, and one qwen3-moe unit (64 of the 128 experts a rank, no
+  `moe_ep`) forward and backward on 4 x 1,024 tokens, each within 1e-4 of
+  one rank's run, each rank's state bytes printed; a refused collective, a
+  timeout or a missing case fails the run. Each rank's launches are the
+  kernel line's `mesh_split` path.
 
 Phase 3 and 3b also hold the flash kernels at head dim 80 (hubert's train
 shape in bf16, the fp32 regime at T = 1,024), the forward at G = 12
@@ -1391,11 +1400,13 @@ def steady_ms(rec):
 
 
 def league_procs(lines):
-    """The JSON result lines of a multiprocess run, by process kind."""
-    procs = {}
+    """The JSON result lines of a multiprocess run, by process kind (a line
+    that holds two processes' objects back to back yields both)."""
+    procs, dec = {}, json.JSONDecoder()
     for line in lines:
-        if line.startswith("{"):
-            rec = json.loads(line)
+        at = 0
+        while line.startswith("{", at):
+            rec, at = dec.raw_decode(line, at)
             procs.setdefault(rec.get("process"), []).append(rec)
     return procs
 
@@ -2874,6 +2885,76 @@ def mesh_phase(dev, counters, smi, per_forward):
     return total, out
 
 
+# the mesh_split phase: `tools/mesh_two_ranks.py --split` in a subprocess,
+# two gloo ranks on this card; its cases (one line each) and its own limit
+MESH_SPLIT_CASES = ("split_prefill_and_decode:rwkv6-3b",
+                    "split_prefill_and_decode:hymba-1.5b",
+                    "split_moe_unit:qwen3-moe-235b-a22b")
+MESH_SPLIT_TIMEOUT_S = 180
+
+
+def mesh_split_phase(smi, names):
+    """RWKV6, Mamba and the experts split over 'model' on two gloo ranks of
+    this card: `tools/mesh_two_ranks.py --split` as a subprocess (its own
+    session, killed whole past MESH_SPLIT_TIMEOUT_S). It probes the
+    collectives the sharded paths call in its ranks, then runs rwkv6-3b's
+    and hymba-1.5b's prefill (4 x 256) and 4 decode steps at full width, 2
+    layers, fp32, through the factory's fns on a (1, 2) mesh, and one
+    qwen3-moe unit (attention, then the MoE without `moe_ep`, 64 of 128
+    experts a rank) forward and backward on 4 x 1,024 tokens, each against
+    the single rank's run within 1e-4 of max(1, max |.|), no plain version
+    on the card. The phase fails when the subprocess exits non-zero or
+    times out, a collective was refused, or a case's line is missing or
+    did not hold. Returns (launches summed over the ranks, each rank's
+    launches, numbers)."""
+    import signal
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()               # the ranks need the card's memory
+    cmd = [sys.executable, str(ROOT / "tools" / "mesh_two_ranks.py"), "--split"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MESH_SPLIT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"mesh_split: no result in {MESH_SPLIT_TIMEOUT_S} s")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)    # no rank outlives the phase
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    seconds = time.perf_counter() - t_phase
+    check(proc.returncode == 0,
+          f"mesh_split: exit {proc.returncode}; stdout tail {out[-2000:]!r}; "
+          f"stderr tail {err[-2000:]!r}")
+    probe = next((ln for ln in lines if "probe" in ln), None)
+    check(probe is not None and not probe["refused"],
+          f"mesh_split: gloo refused a collective: {probe}")
+    cases = {f"{ln['two_ranks']}:{ln['arch']}": ln for ln in lines
+             if "arch" in ln and ln.get("two_ranks", "").startswith("split_")}
+    for name in MESH_SPLIT_CASES:
+        check(name in cases, f"mesh_split: no result line for {name}")
+        check(cases[name]["ok"], f"mesh_split: {name} did not hold: {cases[name]}")
+    done = next((ln for ln in lines if ln.get("two_ranks") == "split_done"), None)
+    check(done is not None and done["ok"], f"mesh_split: {done}")
+    ranks = [dict.fromkeys(names, 0) for _ in range(2)]
+    for case in cases.values():
+        for r, got in enumerate(case["launches"]["each_rank"]):
+            for k, n in got.items():
+                ranks[r][k] += n
+    for name in ("split_prefill_and_decode:hymba-1.5b", "split_moe_unit:qwen3-moe-235b-a22b"):
+        for r, got in enumerate(cases[name]["launches"]["each_rank"]):
+            for k in ("rmsnorm", "flash_attention_fwd"):
+                check(got[k] > 0, f"mesh_split: {name}: rank {r} never launched {k}")
+    total = {k: sum(r[k] for r in ranks) for k in names}
+    emit("mesh_split_phase", card=smi, seconds=seconds, launches=total,
+         launches_each_rank=ranks, cases=[cases[n] for n in MESH_SPLIT_CASES], probe=probe)
+    return total, ranks, {"seconds": seconds, "cases": {n: cases[n] for n in MESH_SPLIT_CASES}}
+
+
 def main() -> int:
     import torch
 
@@ -3789,7 +3870,11 @@ def main() -> int:
         if name != "flash_attention_bwd_preprocess":
             check(launches["mesh"][name] > 0, f"{name} was never launched on the mesh path")
 
-    # -- 15. summary -------------------------------------------------------------
+    # -- 15. the mesh split over two gloo ranks of this card ----------------------
+    launches["mesh_split"], split_ranks, split_out = mesh_split_phase(smi, list(SOURCES))
+    lap("mesh_split")
+
+    # -- 16. summary -------------------------------------------------------------
     # main-path shapes by label, and launches per unit of the main path: per
     # flush (policy-s, policy-m), per env step and per seq step
     main_shapes = ("policy-s serving", "policy-m serving", "learner env shape",
@@ -3835,6 +3920,7 @@ def main() -> int:
                         **({"note": head["note"]} if "note" in head else {}),
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "launches_per_unit": per_unit[name],
+                        "launches_mesh_split_each_rank": [r[name] for r in split_ranks],
                         "max_abs_err": max(r["max_abs_err"] for r in results[name]),
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3885,6 +3971,8 @@ def main() -> int:
                            mesh_out["train"]["max_abs_err"]["grads"],
                            mesh_out["moe"]["max_abs_err"]["grads"]],
                "decode_bitwise_equal": mesh_out["decode"]["bitwise_equal"]},
+         mesh_split={n.split(":")[1]: [c["max_abs_err"], c["ms"]]
+                     for n, c in split_out["cases"].items()},
          seconds=time.perf_counter() - t_start, phase_seconds=laps)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,11 +35,13 @@ explicit:
     and gathered again for the backward). Each gather's backward
     reduce-scatters the grad to the shard;
   - over 'model' the compute splits (tensor parallelism): a rank keeps
-    its slice of the attention heads, the MLP's hidden dim, the vocab and,
-    with expert parallelism, the experts (`_Params.slice_of`), and the
-    block's partial output is summed over 'model' (`model_sum`); the
-    logits are gathered over it (`model_gather`). A dim that does not
-    split evenly is gathered whole and computed on every model rank;
+    its slice of the attention heads, the MLP's hidden dim, the vocab, the
+    experts, RWKV6's heads and channel-mix hidden dim and Mamba's inner
+    channels (`_Params.slice_of`), and the block's partial output is
+    summed over 'model' (`model_sum`); the logits are gathered over it
+    (`model_gather`). A dim that does not split evenly (hymba's 25 heads,
+    RWKV6's heads when H % M != 0) is gathered whole and computed on every
+    model rank;
   - inputs sharded over the data axes are taken as this rank's rows
     (`local_rows`), and inside `data_parallel(...)` every sum over the
     batch (`batch_sum`) spans the data axes, so the loss on each rank is
@@ -50,7 +52,10 @@ explicit:
     a rank's caches hold its KV heads, its block of the cache slots
     (attention over them merged across 'model' by log-sum-exp,
     `model_max` and `model_sum`) or every head (`cache_heads`,
-    `cache_slots`), and they cross the scope as this rank's shards;
+    `cache_slots`); RWKV6's `tm_S` holds its heads and Mamba's `ssm` and
+    `conv` its channels (`rwkv_heads`, `mamba_channels`) wherever
+    `state_shardings` splits them, so every state crosses the scope as
+    this rank's shards;
   - the backward is seeded with 1 / world on every rank and each
     collective's backward is its adjoint (all-reduce <-> all-reduce,
     all-gather <-> reduce-scatter); `reduce_grads` then sums each grad
@@ -69,8 +74,6 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from repro_torch.utils import tree_map
-
-AXES = ("pod", "data", "model")
 
 
 class AbstractMesh:
@@ -435,21 +438,12 @@ def gather(t, keep: Sequence[str] = ()):
     return t.redistribute(t.device_mesh, target).to_local(grad_placements=grad)
 
 
-def local_rows(t, keep_model: bool = False):
-    """This rank's block of an input DTensor laid out over the data axes as
-    a plain tensor: a dim sharded over 'model' is gathered whole, or with
-    `keep_model` kept as this rank's shard (a KV cache split over
-    'model'). A plain tensor is returned as it is."""
-    if not is_dtensor(t):
-        return t
-    local = t.to_local()
-    if keep_model:
-        return local
-    mesh = t.device_mesh
-    for name, p in zip(mesh.mesh_dim_names, t.placements):
-        if name not in AXES[:2] and p.is_shard():
-            local = all_gather(local, p.dim, mesh, (name,))
-    return local
+def local_rows(t):
+    """This rank's block of an input DTensor as a plain tensor: its rows of
+    the data axes, and of a dim laid over 'model' (only a decode state's
+    leaves are, and the mesh scope computes them as this rank's shards)
+    its shard. A plain tensor is returned as it is."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def reduce_grads(grads, params, mesh):
@@ -588,25 +582,64 @@ class _Params:
                         and self.cache != "length")
         # a cache replicated over 'model' holds every KV head: wk and wv whole
         self.kv_whole = self.attn_tp and self.cache == "whole"
-        self.ep = ep and M > 1 and cfg.moe is not None and cfg.moe.num_experts % M == 0
+        # the experts split by expert parallelism, and under tensor
+        # parallelism too (`repro`'s GSPMD pins the expert buffers to 'model')
+        self.experts = ((ep and M > 1) or self.tp) and cfg.moe is not None \
+            and cfg.moe.num_experts % M == 0
+        # the recurrent blocks split where `state_shardings` lays their
+        # states over 'model': RWKV6's time mix by head (tm_S), its channel
+        # mix by hidden dim, Mamba by its inner dim (ssm, conv)
+        ssm = cfg.ssm
+        rwkv = self.tp and ssm is not None and ssm.kind == "rwkv6"
+        self.rwkv_tp = rwkv and (cfg.d_model // ssm.head_size) % M == 0
+        self.cm_tp = rwkv and cfg.d_ff % M == 0
+        self.mamba_tp = (self.tp and ssm is not None and ssm.kind == "mamba"
+                         and (ssm.expand * cfg.d_model) % M == 0)
 
     def slice_of(self, name: str, nd: int):
-        """(dim, chunks, index): the slice of leaf `name` (rank `nd`) that
-        this rank computes with, or None for the whole leaf.
-          - experts (expert parallelism): E/M of them;
+        """(dim, chunks, index) or (dim, chunks, index, parts): the slice of
+        leaf `name` (rank `nd`) that this rank computes with, or None for
+        the whole leaf. With `parts` the dim is `parts` equal blocks and
+        the rank takes the same chunk of each.
+          - experts: E/M of them;
           - attention (when the heads split): H/M query heads, the key and
             value heads they read (KV/M of them, or the one they share
             when KV < M; all of them over a decode cache that keeps every
             head), and wo's rows for those heads;
           - MLP and shared expert: ff/M columns of up and gate, the same
             rows of down (the port's MLPs have no bias);
+          - RWKV6's time mix: H/M heads' columns of wr, wk, wv and wg,
+            their block of w_base and u, and wo's rows (the ddlerp mix and
+            the per-head groupnorm stay whole); its channel mix: d_ff/M
+            columns of wk, the same rows of wv;
+          - Mamba: di/M inner channels, in both halves [z | x] of in_proj,
+            and in conv, dt_proj, A_log, D, and x_proj's and out_proj's rows;
           - embed table rows and lm_head columns: V/M of the vocab."""
         M, m, cfg = self.M, self.m, self.cfg
         parts = name.split("/")
-        if self.ep and parts[-2:-1] == ["moe"] and parts[-1] in ("up", "gate", "down"):
+        if self.experts and parts[-2:-1] == ["moe"] and parts[-1] in ("up", "gate", "down"):
             return (-3, M, m)
         if not self.tp:
             return None
+        if "time_mix" in parts and self.rwkv_tp:
+            if parts[-1] == "w" and parts[-2] in ("wr", "wk", "wv", "wg"):
+                return (-1, M, m)
+            if parts[-2:] == ["wo", "w"]:
+                return (-2, M, m)
+            if parts[-1] in ("w_base", "u"):
+                return (0, M, m)
+            return None
+        if "channel_mix" in parts and self.cm_tp and parts[-1] == "w":
+            return (-1, M, m) if parts[-2] == "wk" else (-2, M, m)
+        if "mamba" in parts and self.mamba_tp:
+            leaf = "/".join(parts[parts.index("mamba") + 1:])
+            if leaf == "in_proj/w":
+                return (-1, M, m, 2)
+            if leaf in ("conv_w", "conv_b", "D", "dt_proj/w", "dt_proj/b"):
+                return (-1, M, m)
+            if leaf in ("A_log", "x_proj/w", "out_proj/w"):
+                return (-2, M, m)
+            raise ValueError(f"{name}: no split over 'model' for this Mamba leaf")
         if "attn" in parts and parts[-2] in ("wq", "wk", "wv", "wo"):
             if not self.attn_tp:
                 return None
@@ -648,13 +681,19 @@ class _Params:
         for d, ax in enumerate(spec):
             if ax is None:
                 continue
-            if want is not None and d == want[0] and ax == "model" and want[1] == self.M:
+            # the stored shard is a contiguous block: it is the slice only
+            # when the slice is one block of M
+            if (want is not None and d == want[0] and ax == "model" and want[1] == self.M
+                    and len(want) == 3):
                 want = None
                 continue
             t = all_gather(t, d, self.mesh, (ax,) if isinstance(ax, str) else ax)
         if want is not None:
-            d, n, i = want
-            t = t.narrow(d, t.shape[d] // n * i, t.shape[d] // n)
+            d, n, i = want[:3]
+            parts = want[3] if len(want) > 3 else 1
+            t = t.unflatten(d, (parts, -1))
+            size = t.shape[d + 1] // n
+            t = t.narrow(d + 1, size * i, size).flatten(d, d + 1)
         return t
 
 
@@ -700,8 +739,8 @@ def param_scope(mesh, specs, cfg, *, tp: bool = True, ep: bool = False, cache=No
     code gathers what it uses at use (`materialize`): a repeat unit's
     weights for that unit only, so a rank holds its shards and one unit
     gathered. With `tp` the 'model' axis splits the compute (tensor
-    parallelism: `_Params.slice_of`); `ep` keeps each rank's experts
-    (expert parallelism). `cache` (`cache_mode`: 'heads', 'length' or
+    parallelism: `_Params.slice_of`), the experts included; `ep` keeps
+    each rank's experts without it (expert parallelism). `cache` (`cache_mode`: 'heads', 'length' or
     'whole') is how the decode caches lie over 'model' in a prefill or a
     decode step; `cache_heads` and `cache_slots` size this rank's."""
     st = capture()
@@ -776,6 +815,22 @@ def cache_slots(cache_len: int) -> Tuple[int, int]:
         n = cache_len // p.M
         return p.m * n, n
     return 0, cache_len
+
+
+def rwkv_heads(cfg) -> int:
+    """The RWKV6 heads this rank's time mix runs and its `tm_S` holds: H/M
+    when the scope splits them over 'model', else all H."""
+    p = capture().params
+    H = cfg.d_model // cfg.ssm.head_size
+    return H // p.M if p is not None and p.rwkv_tp else H
+
+
+def mamba_channels(cfg) -> int:
+    """The Mamba inner channels this rank computes and its `conv` and `ssm`
+    states hold: di/M when the scope splits them over 'model', else all."""
+    p = capture().params
+    di = cfg.ssm.expand * cfg.d_model
+    return di // p.M if p is not None and p.mamba_tp else di
 
 
 def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+import sys
 import threading
 import time
 from typing import Callable, Optional
@@ -152,9 +153,10 @@ def run_replica(*, arch: str = "tleague-policy-s", env_name: str = "rps",
         st = server.stats()
         print(f"[replica] served {st['rows_served']} rows over "
               f"{st['batches_run']} batches", flush=True)
-        print(json.dumps({"process": "replica", **st,
-                          "kernels": kernel_report(dev)}, default=str),
-              flush=True)
+        # one write for the line and its newline (replicas share a pipe)
+        sys.stdout.write(json.dumps({"process": "replica", **st,
+                                     "kernels": kernel_report(dev)}, default=str) + "\n")
+        sys.stdout.flush()
 
 
 def run_gateway(replica_endpoints, *, bind: str = "127.0.0.1:0",

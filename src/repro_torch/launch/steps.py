@@ -10,14 +10,17 @@ and batch laid out by `in_shardings`, each rank keeps its param shards and
 computes on its rows of the batch, and `fn` returns DTensors laid out by
 `out_shardings`. Every step gathers one repeat unit's weights at a time
 (FSDP over the data axes) and splits the compute over 'model' (tensor
-parallelism: the heads, the MLP's hidden dim, the vocab; expert
-parallelism with `moe_ep`): the train steps in `learners/steps.py`,
-prefill and decode in `_spmd`. Their KV caches lie as `repro`'s
-`state_shardings` lays them out: a rank holds its KV heads when they
-split over 'model', its block of the cache slots with `shard_cache_len`
-(attention merged across 'model' by log-sum-exp), or every head; the state
-crosses `_spmd` as those shards, with no gather. The kernels it reaches
-(flash forward, dq, dk/dv, RMSNorm, the scan) see plain local tensors.
+parallelism: the heads, the MLP's hidden dim, the vocab, the experts,
+RWKV6's heads and channel-mix hidden dim, Mamba's inner channels; the
+per-shard capacity of expert parallelism with `moe_ep`): the train steps
+in `learners/steps.py`, prefill and decode in `_spmd`. Their states lie as
+`repro`'s `state_shardings` lays them out: a rank holds its KV heads when
+they split over 'model', its block of the cache slots with
+`shard_cache_len` (attention merged across 'model' by log-sum-exp), or
+every head; RWKV6's `tm_S` its heads and Mamba's `ssm` and `conv` its
+channels where they split. The state crosses `_spmd` as those shards, with
+no gather. The kernels it reaches (flash forward, dq, dk/dv, RMSNorm, the
+scan) see plain local tensors.
 """
 from __future__ import annotations
 
@@ -51,34 +54,27 @@ def _replicate_tree(tree):
 def _spmd(fn, cfg, mesh, out_specs, state_specs):
     """Run a row-parallel `fn` (prefill, decode) on a DeviceMesh: params as
     this rank's shards in a tensor-parallel param scope (each unit
-    gathered at use over the data axes, its 'model' slice kept), the KV
-    caches as this rank's shards of them (`sharding.cache_mode` of
-    `state_specs`: its KV heads, its block of slots, or whole), every
-    other input as this rank's rows (a 'model'-sharded dim gathered), and
-    each output wrapped back as a DTensor laid out by its spec: a KV cache
-    is this rank's shard already; any other 'model'-sharded dim (RWKV6's
-    and Mamba's states, computed whole) keeps this rank's slice."""
+    gathered at use over the data axes, its 'model' slice kept), the
+    decode state as this rank's shards of it (the KV caches by
+    `sharding.cache_mode` of `state_specs`: its KV heads, its block of
+    slots, or whole; RWKV6's and Mamba's states by head or channel where
+    their specs split them), every other input as this rank's rows, and
+    each output wrapped back as a DTensor laid out by its spec: every
+    state leaf is this rank's shard already."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     cache = SH.cache_mode(state_specs)
 
     def wrap(name, spec, t):
-        local = t
         pl = []
-        for axis, size in SH.mesh_sizes(mesh).items():
+        for axis in SH.mesh_sizes(mesh):
             dim = next((i for i, ax in enumerate(spec) if ax is not None and axis in
                         ((ax,) if isinstance(ax, str) else ax)), None)
-            if dim is None:
-                pl.append(Replicate())
-                continue
-            pl.append(Shard(dim))
-            if axis == "model" and not SH.is_kv(name, t.dim()):   # computed whole here
-                local = local.chunk(size, dim)[SH.axis_index(mesh, axis)]
-        return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+            pl.append(Replicate() if dim is None else Shard(dim))
+        return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False)
 
     def run(params, *inputs, axes):
         local, specs = SH.local_params(params, mesh)
-        rows = SH.map_with_path(
-            lambda name, t: SH.local_rows(t, keep_model=SH.is_kv(name, t.dim())), inputs)
+        rows = SH.map_with_path(lambda _, t: SH.local_rows(t), inputs)
         with SH.data_parallel(mesh, axes), \
                 SH.param_scope(mesh, specs, cfg, ep=MOE.expert_parallel(), cache=cache):
             out = fn(local, *rows)

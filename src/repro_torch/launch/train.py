@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 from repro_torch.actors import Actor
@@ -206,8 +207,11 @@ def _main_distributed(args, spec):
     from repro_torch.launch import distributed as dist
 
     def emit(role, result):
-        print(json.dumps({"process": role, **result}, default=str),
-              flush=True)
+        # one write per line: the roles share their parent's stdout pipe,
+        # and under `python -u` print's text and newline are two writes
+        # that another process's line can fall between
+        sys.stdout.write(json.dumps({"process": role, **result}, default=str) + "\n")
+        sys.stdout.flush()
 
     def endpoint():
         ep = args.connect or os.environ.get("LEAGUE_MGR_EP", "")

@@ -16,16 +16,20 @@ syncs. The capacity is a Python int of the shapes.
 
 Over a mesh (`distributed/sharding.py`), inside a data-parallel scope,
 each rank routes its own tokens and the load-balance statistics are
-averaged over the data axes, so the aux loss is the global batch's. The
-keep/drop decision is `repro`'s GSPMD `moe_apply`'s: the capacity is the
-global one, C = max(int(N * k * cf / E), k) of every data rank's N tokens,
-and a choice's position in its expert is its rank in the global rank-major
-order (`route_global`), so the mesh gives the single device's result
-whatever drops. When the rank holds E/M of the experts (expert
-parallelism) it runs only those and the combine is a sum over 'model';
-`moe_apply_ep` is that path, `repro`'s `shard_map` body run per rank, and
-like it routes with the per-(data shard) capacity,
-C = max(int(N_l * k * cf / E), k).
+averaged over the data axes, so the aux loss is the global batch's. A
+model rank holds E/M of the experts (when E % M == 0) and runs only those:
+every model rank routes the same tokens to the same choices, scatters
+those of its experts into a local buffer, and the weighted outputs are
+summed over 'model'. The capacity rule comes from the expert-parallel
+toggle (`set_expert_parallel`), as `repro`'s does:
+  - off (`repro`'s GSPMD `moe_apply`, whose expert buffers lie over
+    'model'): the global capacity, C = max(int(N * k * cf / E), k) of
+    every data rank's N tokens, a choice's position in its expert being its
+    rank in the global rank-major order (`route_global`), so the mesh
+    gives the single device's result whatever drops; the aux loss is
+    computed over all E on every model rank;
+  - on (`moe_apply_ep`, `repro`'s `shard_map` body run per rank): the
+    per-(data shard) capacity, C = max(int(N_l * k * cf / E), k).
 """
 from __future__ import annotations
 
@@ -66,9 +70,9 @@ def route_topk(gates: torch.Tensor, k: int, capacity: int):
 
 
 # expert-parallel toggle, set by the step factory (`launch/steps.py`): a
-# sharded run keeps each model rank's E/M experts (expert parallelism)
-# when it is on, and gathers every expert when it is off. A single device
-# ignores it.
+# sharded run routes with the per-(data shard) capacity (expert
+# parallelism) when it is on, and with the global one when it is off; the
+# experts split over 'model' either way. A single device ignores it.
 _EXPERT_PARALLEL = False
 
 
@@ -85,11 +89,14 @@ def moe_apply(p, cfg, x):
     """x: (B, T, d) -> (y (B, T, d), aux_loss fp32 scalar). Works for T == 1
     decode too. The experts' weights are cast to x's dtype per call, as
     `repro` casts them. Inside a data-parallel scope the mesh path runs
-    (`_moe_ranked`): expert-parallel when this rank holds a slice of the
-    experts."""
+    (`_moe_ranked`) over the experts this rank holds, expert-parallel when
+    the toggle is on and the experts divide over 'model', as `repro`
+    decides."""
     mesh = SH.dp_mesh()
     if mesh is not None:
-        return _moe_ranked(p, cfg, x, mesh, ep=p["up"].shape[0] < cfg.moe.num_experts)
+        M = SH.mesh_sizes(mesh).get("model", 1)
+        return _moe_ranked(p, cfg, x, mesh,
+                           ep=expert_parallel() and cfg.moe.num_experts % M == 0)
     e = cfg.moe
     B, T, d = x.shape
     xf = x.reshape(B * T, d)
@@ -159,7 +166,8 @@ def route_local(gates, k: int, capacity: int, m_idx: int, E_l: int):
     return slot, topv, keep, counts
 
 
-def route_global(gates, k: int, capacity_factor: float, mesh, axes):
+def route_global(gates, k: int, capacity_factor: float, mesh, axes, m_idx: int = 0,
+                 E_l: int = 0):
     """`route_topk` over the global batch of a data-parallel scope, for
     this rank's N tokens: the capacity is `repro`'s GSPMD one, max(int(D *
     N * k * cf / E), k) over the D data ranks' tokens, and a choice's
@@ -171,8 +179,10 @@ def route_global(gates, k: int, capacity_factor: float, mesh, axes):
     Returns (slot (N, k), weight (N, k), keep (N, k), counts (E,) before
     capacity, rows). A rank's kept choices are a prefix of each expert's
     local order and number fewer than min(capacity, N), so `slot` indexes a
-    local (E * rows + PAD_ROWS) buffer, rows = min(capacity, N), E * rows
-    being the drop bucket."""
+    local (E_l * rows + PAD_ROWS) buffer over model rank `m_idx`'s experts
+    [m_idx * E_l, (m_idx + 1) * E_l) (all E when E_l is 0), rows =
+    min(capacity, N), E_l * rows being the drop bucket, where the choices
+    of other ranks' experts go too (their rank takes them)."""
     N, E = gates.shape
     topv, topi = _choices(gates, k)
     pos, counts = _positions(topi, E)
@@ -186,7 +196,10 @@ def route_global(gates, k: int, capacity_factor: float, mesh, axes):
     capacity = max(int(D * N * k * capacity_factor / E), k)
     keep = gpos < capacity
     rows = min(capacity, N)
-    slot = torch.where(keep, topi * rows + pos, E * rows)
+    E_l = E_l or E
+    local_e = topi - m_idx * E_l
+    mine = keep & (local_e >= 0) & (local_e < E_l)
+    slot = torch.where(mine, local_e * rows + pos, E_l * rows)
     return slot, topv, keep, counts, rows
 
 
@@ -242,16 +255,16 @@ def _hidden_slice(mlp, M, m):
 def _moe_ranked(p, cfg, x, mesh, ep: bool):
     """The MoE on one rank of a mesh: this rank's tokens, routed with the
     global capacity (`route_global`), or with `ep` with the per-shard one
-    over this model rank's E/M experts. `p` holds plain tensors: the
-    router whole, the experts whole or (`ep`) this model rank's E/M, the
-    shared expert whole or a slice of its hidden dim."""
+    (`route_local`), over the experts this rank holds. `p` holds plain
+    tensors: the router whole, the experts whole or this model rank's E/M,
+    the shared expert whole or a slice of its hidden dim."""
     e = cfg.moe
     sizes = SH.mesh_sizes(mesh)
-    M = sizes.get("model", 1) if ep else 1
     dp = SH.data_axes(mesh)
     D = math.prod(sizes[ax] for ax in dp)
     E, k = e.num_experts, e.experts_per_token
-    E_l = E // M
+    E_l = p["up"].shape[0]
+    M = E // E_l                                # model ranks the experts split over
     m_idx = SH.axis_index(mesh, "model") if M > 1 else 0
     a = L.act_fn(cfg.activation)
 
@@ -266,7 +279,7 @@ def _moe_ranked(p, cfg, x, mesh, ep: bool):
         slot, topv, keep, counts = route_local(gates, k, C, m_idx, E_l)
     else:
         slot, topv, keep, counts, C = route_global(gates, k, e.capacity_factor, mesh,
-                                                   SH.dp_axes())
+                                                   SH.dp_axes(), m_idx, E_l)
 
     buf = xl.new_zeros((E_l * C + PAD_ROWS, d))
     buf[slot.reshape(-1)] = xf[torch.arange(N_l * k, device=xl.device) // k]
@@ -291,13 +304,16 @@ def _moe_ranked(p, cfg, x, mesh, ep: bool):
         y = y + ys
 
     # load-balance aux: the global load fraction times the global mean gate
-    # probability, averaged over data before the product
-    f_local = counts[:E_l].float() / (N_l * k)
-    p_local = gates.mean(0)[m_idx * E_l:(m_idx + 1) * E_l]
+    # probability, averaged over data before the product; with `ep` each
+    # model rank's experts' terms, summed over 'model', else every expert's
+    # on every model rank
+    lo, n = (m_idx * E_l, E_l) if ep else (0, E)
+    f_local = counts[:n].float() / (N_l * k)
+    p_local = gates.mean(0)[lo:lo + n]
     if dp:
         f_local = SH.all_reduce_sum(f_local, mesh, dp) / D
         p_local = SH.all_reduce_sum(p_local, mesh, dp) / D
     aux = e.router_aux_coef * E * (f_local * p_local).sum()
-    if M > 1:
+    if ep and M > 1:
         aux = SH.all_reduce_sum(aux, mesh, ("model",))
     return y.reshape(B_l, T, d), aux

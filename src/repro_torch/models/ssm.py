@@ -17,12 +17,17 @@ compute, where RWKV6 runs as a rounding witness); a step forms
 its own decay (`dA` for Mamba), so no (B, T, di, N) tensor is ever
 materialised. The causal conv is explicit taps, as in `repro`: cuDNN's
 `conv1d` would run fp32 as TF32.
+
+Under a mesh scope both split over 'model' as `repro`'s sharding rules lay
+them out: RWKV6's time mix by head and its channel mix by hidden dim,
+Mamba by its inner dim, each block's partial output summed over 'model'.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 RWKV_TARGETS = ("r", "k", "v", "w", "g")
@@ -77,17 +82,24 @@ def _rwkv_head_step(r_t, k_t, v_t, w_t, u, S):
 
 
 def rwkv_time_mix(p, cfg, x, x_prev_init, S_init):
-    """Full-sequence scan. x: (B, T, d). Returns (y, (x_last, S_last))."""
+    """Full-sequence scan. x: (B, T, d). Returns (y, (x_last, S_last)).
+
+    H is read from the weights: under a mesh scope that splits the heads
+    over 'model' this rank's wr, wk, wv, wg, w_base and u hold its H/M
+    heads, wo its rows, and S its heads; the ddlerp mix runs whole, the
+    decay input is cut to the rank's channels, and wo's partial output is
+    summed over 'model'."""
     B, T, d = x.shape
     hs = cfg.ssm.head_size
-    H = d // hs
+    H = p["wr"]["w"].shape[-1] // hs
     x_prev = torch.cat([x_prev_init[:, None], x[:, :-1]], dim=1)
     m = _rwkv_mix(p, x, x_prev)
     r = L.wide(L.dense(p["wr"], m["r"]).reshape(B, T, H, hs))
     k = L.wide(L.dense(p["wk"], m["k"]).reshape(B, T, H, hs))
     v = L.wide(L.dense(p["wv"], m["v"]).reshape(B, T, H, hs))
     g = F.silu(L.dense(p["wg"], m["g"]))
-    w = torch.exp(-torch.exp(p["w_base"].to(r.dtype) + L.wide(m["w"]))).reshape(B, T, H, hs)
+    mw = m["w"] if H * hs == d else m["w"].narrow(-1, SH.model_index() * H * hs, H * hs)
+    w = torch.exp(-torch.exp(p["w_base"].to(r.dtype) + L.wide(mw))).reshape(B, T, H, hs)
     u = p["u"].to(r.dtype)
 
     S = S_init.to(r.dtype)
@@ -97,8 +109,8 @@ def rwkv_time_mix(p, cfg, x, x_prev_init, S_init):
         ys.append(y_t)
     y = torch.stack(ys, dim=1)                                   # (B, T, H, hs)
     y = L.layernorm(p["ln_out"], y.to(x.dtype))
-    y = y.reshape(B, T, d) * g
-    return L.dense(p["wo"], y), (x[:, -1], S)
+    y = L.dense(p["wo"], y.reshape(B, T, H * hs) * g)
+    return (y if H * hs == d else SH.model_sum(y)), (x[:, -1], S)
 
 
 def rwkv_time_mix_step(p, cfg, x, state):
@@ -108,11 +120,12 @@ def rwkv_time_mix_step(p, cfg, x, state):
 
 
 def init_rwkv_state(cfg, batch, dtype, device=None):
-    d = cfg.d_model
+    """(x_prev (B, d), S (B, H, hs, hs)) at zero; under a mesh scope S holds
+    this rank's heads (`sharding.rwkv_heads`)."""
     hs = cfg.ssm.head_size
-    return (torch.zeros((batch, d), dtype=dtype, device=device),
-            torch.zeros((batch, d // hs, hs, hs), dtype=torch.promote_types(dtype, torch.float32),
-                        device=device))
+    return (torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+            torch.zeros((batch, SH.rwkv_heads(cfg), hs, hs),
+                        dtype=torch.promote_types(dtype, torch.float32), device=device))
 
 
 # -- RWKV channel mix (its FFN, also token-shifted) ---------------------------
@@ -126,11 +139,13 @@ def init_rwkv_channel_mix(gen, cfg, dtype):
 
 
 def rwkv_channel_mix(p, cfg, x, x_prev_init):
-    """x: (B, T, d). Returns (y, x_last)."""
+    """x: (B, T, d). Returns (y, x_last). Under a mesh scope that splits
+    the hidden dim over 'model', wv's partial output is summed over it."""
     x_prev = torch.cat([x_prev_init[:, None], x[:, :-1]], dim=1)
     xk = x + (x_prev - x) * p["mu_k"].to(x.dtype)
     k = torch.square(F.relu(L.dense(p["wk"], xk)))
-    return L.dense(p["wv"], k), x[:, -1]
+    y = L.dense(p["wv"], k)
+    return (y if k.shape[-1] == cfg.d_ff else SH.model_sum(y)), x[:, -1]
 
 
 # ===========================================================================
@@ -172,7 +187,12 @@ def _mamba_conv_full(p, x):
 def mamba_apply(p, cfg, x, state=None):
     """x: (B, T, d). state=None for a full sequence from a zero state;
     (conv_buf (B, K-1, di), h (B, di, N)) for a decode step (T == 1).
-    Returns (y, (conv_buf, h))."""
+    Returns (y, (conv_buf, h)).
+
+    Under a mesh scope that splits the inner dim over 'model' the params
+    and states hold this rank's di/M channels: x_proj's and out_proj's
+    partial outputs are summed over 'model', so dt_in, B and C, and y, are
+    whole on every rank."""
     B, T, d = x.shape
     N = cfg.ssm.state_size
     dt_rank = p["dt_proj"]["w"].shape[0]
@@ -193,7 +213,9 @@ def mamba_apply(p, cfg, x, state=None):
         conv_buf_out = window[:, 1:]
     xc = F.silu(xc)
 
-    dt_in, Bc, Cc = L.dense(p["x_proj"], xc).split([dt_rank, N, N], dim=-1)
+    split = di != cfg.ssm.expand * d
+    proj = L.dense(p["x_proj"], xc)
+    dt_in, Bc, Cc = (SH.model_sum(proj) if split else proj).split([dt_rank, N, N], dim=-1)
     dt = F.softplus(L.dense(p["dt_proj"], dt_in)).float()        # (B, T, di)
     A = -torch.exp(p["A_log"].float())                           # (di, N)
     dtx = dt * xc.float()
@@ -206,11 +228,13 @@ def mamba_apply(p, cfg, x, state=None):
         ys.append(h @ Cf[:, t, :, None])                         # (B, di, 1)
     y = torch.cat(ys, dim=-1).transpose(1, 2).to(x.dtype)        # (B, T, di)
     y = y + xc * p["D"].to(x.dtype)
-    y = y * F.silu(z)
-    return L.dense(p["out_proj"], y), (conv_buf_out, h)
+    y = L.dense(p["out_proj"], y * F.silu(z))
+    return (SH.model_sum(y) if split else y), (conv_buf_out, h)
 
 
 def init_mamba_state(cfg, batch, dtype, device=None):
-    di = cfg.ssm.expand * cfg.d_model
+    """(conv_buf (B, K-1, di), h (B, di, N)) at zero; under a mesh scope
+    they hold this rank's channels (`sharding.mamba_channels`)."""
+    di = SH.mamba_channels(cfg)
     return (torch.zeros((batch, cfg.ssm.conv_kernel - 1, di), dtype=dtype, device=device),
             torch.zeros((batch, di, cfg.ssm.state_size), dtype=torch.float32, device=device))

@@ -30,10 +30,10 @@ each leaf stacked on the leading repeat axis, and `length` (B,) is the
 next absolute position. Decode has no model axis (`repro`'s has none).
 
 Under a mesh scope (`launch/steps.py`'s sharded prefill and decode) the
-'model' axis splits the compute as in training, and each rank's KV caches
-hold its KV heads, or its block of the cache slots, as `repro`'s
-`state_shardings` lays the caches out (`models/attention.py`); RWKV6's and
-the Mamba heads' states are computed whole on every model rank.
+'model' axis splits the compute as in training, and each rank's states
+hold what `repro`'s `state_shardings` gives it: its KV heads, or its block
+of the cache slots (`models/attention.py`), RWKV6's `tm_S` its heads and
+the Mamba heads' `conv` and `ssm` its channels (`models/ssm.py`).
 """
 from __future__ import annotations
 
