@@ -41,7 +41,7 @@ drives the port's paths on the card:
 - league_loop: `examples/quickstart.py`'s loop (Actor -> DataServer ->
   Learner -> freeze -> payoff), 2 periods x 8 iterations;
 - runtime: `build_runtime` with `examples/league_specs/main_minimax.json`'s
-  two roles under a step gate of 8, to 2 freezes per role: local actors
+  two roles under a step gate of 4, to 2 freezes per role: local actors
   with the DataServer's prefetch on and off, then served actors, each
   launching exactly its learner steps' and its segments' or flushes'
   kernels; `learn()` wall with prefetch on and off;
@@ -53,7 +53,7 @@ drives the port's paths on the card:
   codec and under pickle) with the in-process pool's manifest hashes; the
   round trip, the pulls and a segment's `put_when_room` timed;
 - multiprocess: `python -m repro_torch.launch.train --workers W` (W = 2
-  and 4 with local actors, 2 served), to 16 learner steps per role under
+  with local actors, 2 served), to 16 learner steps per role under
   a step gate of 8, no actor respawned: a clean shutdown with no actor
   restarted and no segment dropped, every learner froze, and every
   process (coordinator, learners, actors) on the card with exactly its
@@ -63,6 +63,23 @@ drives the port's paths on the card:
   a probe per lineage against the CPU's plain forward, both replicas
   serving with exactly their flushes' launches, rows/s in warm windows
   alternated with one in-process InfServer's;
+- faults: the league under real faults, the port's four fault smokes
+  (`tests/smoke_torch_*.py --device cuda`) as subprocesses: the shm ring's
+  producer kill -9'd mid-stream (its segment gone within 10 s, a fresh
+  client bit-exact) beside the kill-coordinator smoke (the coordinator
+  SIGSTOP'd, its learner and actor out through the heartbeat timeout with
+  exit 0), then chaos (collector_smoke.json's league under a seeded
+  FaultPlan: two actors and the pool replica SIGKILLed, a third actor
+  SIGSTOP'd past the stale threshold; reaped, re-issued and a late result
+  dropped, the target reached) and serving (a 3-replica fleet, the
+  busiest replica kill -9'd: availability, the 2 s bucket's hit rate and
+  p99); every child that reported ran on the card, each learner launched
+  all five kernels;
+- examples: `examples/torch_{quickstart,rps_nash,pommerman_league,
+  serve_policy}.py` through their `main(argv)` on the card: quickstart's
+  launches exactly its steps' and segments', rps_nash's distributions,
+  the Fig. 4 win rate lockstep and async, gemma2's reduced decode and the
+  batched InfServer;
 - decode: the dense family's serving path at full width: gemma2-2b and
   qwen3-8b at full depth (bf16 compute over fp32 params), command-r-35b at
   full depth and mistral-large-123b at 20 of 88 layers (bf16 params): the
@@ -76,7 +93,7 @@ drives the port's paths on the card:
   over the gemma2 backbone, and one repeat unit card vs CPU;
 - families: the moe, ssm, hybrid and vlm families at full width, one arch
   at a time: qwen3-moe-235b-a22b (4 of 94 layers), kimi-k2-1t-a32b (its
-  dense prefix and 1 MoE layer of 61), rwkv6-3b and hymba-1.5b (8 of 32
+  dense prefix and 1 MoE layer of 61), rwkv6-3b and hymba-1.5b (4 of 32
   layers; their decode demo at full depth) and pixtral-12b (full depth,
   with the decode demo), prefill of
   4 x 1024 tokens (pixtral's after 1024 patch embeddings; rwkv6's and
@@ -155,6 +172,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.append(str(ROOT / "tests"))           # torch_smoke_lib: process plumbing
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # fp32 on the CUDA cores (IEEE, no TF32)
@@ -180,16 +198,19 @@ ENV_SLOTS = (16, 64, 256)          # env-step timing; the card-vs-CPU check runs
 ENV_CHECK_STEPS, ENV_TIMED_STEPS = 64, 20
 ENV_REWARD_TOL = 1e-6
 LOOP_PERIODS, LOOP_ITERS = 2, 8    # examples/quickstart.py's loop
-RUNTIME_STEP_GATE, RUNTIME_FREEZES = 8, 2
+# the runtime's step gate cut from 8 to 4 for the script's time: the same
+# 2 freezes per role at half the learner steps (so is its profiled run)
+RUNTIME_STEP_GATE, RUNTIME_FREEZES = 4, 2
 RUNTIME_MAX_S = 300.0
 # the league across processes: the transport in one process, the
 # multiprocess league as `launch.train --workers W` runs it, the fleet
 TRANSPORT_SEGMENT_ROWS = 2 * ACT_E
 TRANSPORT_FLUSHES, TRANSPORT_RTT_CALLS, TRANSPORT_PULLS, TRANSPORT_PUTS = 20, 200, 10, 8
 # (actor processes, served); the served run's InfServer is mesh-sharded
-# (`--sharded`: a (1, 1) mesh of the card)
-MP_RUNS = ((2, False), (4, False), (2, True))
-MP_STEPS, MP_TIMEOUT_S = 16, 300.0
+# (`--sharded`: a (1, 1) mesh of the card). The W = 4 run is cut for the
+# script's time (the faults phase runs 4-actor leagues)
+MP_RUNS = ((2, False), (2, True))
+MP_STEPS, MP_STEP_GATE, MP_TIMEOUT_S = 16, 8, 300.0
 FLEET_REPLICAS, FLEET_ROUNDS, FLEET_ROWS = 2, 50, 64
 # rows/s through the warm fleet and through one in-process InfServer,
 # alternated: windows of rounds of FLEET_REPLICAS x FLEET_ROWS rows each
@@ -217,14 +238,14 @@ DECODE_CPU_B, DECODE_CPU_T, DECODE_CPU_STEPS = 2, 80, 4
 CONSISTENCY_TOL = 1e-3                         # of max(1, max |logits|)
 # the families phase: qwen3-moe-235b-a22b, kimi-k2-1t-a32b (depth cut to
 # fit the card: 4 of 94 layers; the dense prefix and 1 MoE layer of 61),
-# rwkv6-3b and hymba-1.5b (depth cut to 8 of 32 layers for the script's
+# rwkv6-3b and hymba-1.5b (depth cut to 4 of 32 layers for the script's
 # time: their host-bound loops over time cost in proportion to depth) and
 # pixtral-12b at full depth; full width, seeded, the configs' own dtypes;
 # DECODE_B prompts of DECODE_T tokens (pixtral's after PATCHES patch
 # embeddings; FAMILY_PROMPT's for rwkv6 and hymba), FAMILY_STEPS greedy
 # steps
-FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "kimi-k2-1t-a32b": 2, "rwkv6-3b": 8,
-                "hymba-1.5b": 8, "pixtral-12b": None}
+FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "kimi-k2-1t-a32b": 2, "rwkv6-3b": 4,
+                "hymba-1.5b": 4, "pixtral-12b": None}
 PATCHES = 1024                                 # configs/pixtral_12b.py NUM_PATCHES
 # rwkv6's and hymba's prompts are cut to 256 tokens: their scans are
 # Python loops over time (~5 eager ops per token per layer), so a 4 x 1024
@@ -276,6 +297,10 @@ TRAIN_CPU_B, TRAIN_CPU_T, TRAIN_CPU_PATCHES = 2, 64, 16   # card vs CPU, one uni
 # the softcap of 50, so dropping the cap moves o and lse past the tolerance
 GEMMA2_Q_SCALE = 8.0
 INF_REQUESTS, INF_OBS_LEN = 32, 8              # examples/serve_policy.py step 3
+# a plain version this slow (at the prefill shapes: hubert's 0.57 s, the
+# scan's 0.1 s) is timed over SLOW_CALLS calls, not 20; kernels and library
+# calls always over 20
+SLOW_CALL_S, SLOW_CALLS = 0.05, 5
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -1072,14 +1097,14 @@ def actors_phase(dev, cfg, counters, smi, per_forward):
 
 
 def league_loop_phase(dev, cfg, counters, smi, per_forward, per_step, theta0):
-    """`examples/quickstart.py`'s loop on the card: an Actor (local,
-    pommerman_lite, 16 envs x 16) -> `data_server.put` -> `learner.learn()`,
-    LOOP_ITERS iterations per learning period, then `end_learning_period`;
-    LOOP_PERIODS periods. The league state after it has `repro`'s structure:
-    the seed and the first period's key frozen, the lineage on the third
-    key, and a payoff entry for every reported match. Launches: exactly one
-    local segment's and one env step's per iteration. Returns (launches,
-    numbers, learner)."""
+    """`examples/torch_quickstart.py`'s loop (its `train`) on the card: an
+    Actor (local, pommerman_lite, 16 envs x 16) -> `data_server.put` ->
+    `learner.learn()`, LOOP_ITERS iterations per learning period, then
+    `end_learning_period`; LOOP_PERIODS periods. The league state after it
+    has `repro`'s structure: the seed and the first period's key frozen,
+    the lineage on the third key, and a payoff entry for every reported
+    match. Launches: exactly one local segment's and one env step's per
+    iteration. Returns (launches, numbers, learner)."""
     import torch
 
     from repro_torch.actors import Actor
@@ -1096,21 +1121,28 @@ def league_loop_phase(dev, cfg, counters, smi, per_forward, per_step, theta0):
     opt = adamw(3e-4, clip_norm=1.0)
     learner = Learner(league, build_env_train_step(cfg, env.spec.num_actions, opt), opt, theta0,
                       device=dev)
+    # an iteration from its segment's start to its learn's end
+    iter_ms, learn_ms, t_it = [], [], [0.0]
+    segment, learn = actor.run_segment, learner.learn
+
+    def timed_segment():
+        t_it[0] = time.perf_counter()
+        return segment()
+
+    def timed_learn():
+        t_l = time.perf_counter()
+        metrics = learn()
+        learn_ms.append(1e3 * (time.perf_counter() - t_l))
+        metrics["loss"].item()             # the sync of the loop's own .item()
+        iter_ms.append(1e3 * (time.perf_counter() - t_it[0]))
+        return metrics
+
+    actor.run_segment, learner.learn = timed_segment, timed_learn
     zero(counters)
     t0 = time.perf_counter()
-    iter_ms, learn_ms, losses = [], [], []
-    for _ in range(LOOP_PERIODS):
-        for _ in range(LOOP_ITERS):
-            t_it = time.perf_counter()
-            traj, task = actor.run_segment()
-            learner.data_server.put(traj)
-            t_l = time.perf_counter()
-            metrics = learner.learn()
-            losses.append(metrics["loss"].item())
-            learn_ms.append(1e3 * (time.perf_counter() - t_l))
-            iter_ms.append(1e3 * (time.perf_counter() - t_it))
-        learner.end_learning_period()
+    losses, _ = load_example("quickstart").train(actor, learner, LOOP_PERIODS, LOOP_ITERS)
     torch.cuda.synchronize()
+    del actor.run_segment, learner.learn           # the classes' methods again
     seconds = time.perf_counter() - t0
     launches = read(counters)
     check_on_card("league_loop")
@@ -1402,20 +1434,49 @@ def steady_ms(rec):
 def league_procs(lines):
     """The JSON result lines of a multiprocess run, by process kind (a line
     that holds two processes' objects back to back yields both)."""
-    procs, dec = {}, json.JSONDecoder()
-    for line in lines:
-        at = 0
-        while line.startswith("{", at):
-            rec, at = dec.raw_decode(line, at)
-            procs.setdefault(rec.get("process"), []).append(rec)
+    from torch_smoke_lib import records
+
+    procs = {}
+    for rec in records(lines):
+        procs.setdefault(rec["process"], []).append(rec)
     return procs
+
+
+def run_commands(cmds, env=None):
+    """Start every command of `cmds` (name -> (argv, timeout s)) at once from
+    the checkout, each in a session of its own; wait for each under its
+    timeout, then kill its whole group, so that nothing it started outlives
+    the call. Returns name -> {rc (None when it timed out), seconds, stdout,
+    stderr}."""
+    from torch_smoke_lib import kill_group
+
+    started = {name: (time.perf_counter(), timeout, subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)) for name, (cmd, timeout) in cmds.items()}
+    out = {}
+    try:
+        for name, (t0, timeout, proc) in started.items():
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+                rc = proc.returncode
+            except subprocess.TimeoutExpired:
+                kill_group(proc.pid)
+                stdout, stderr = proc.communicate()
+                rc = None
+            out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                         "stdout": stdout, "stderr": stderr}
+    finally:
+        for _, _, proc in started.values():
+            kill_group(proc.pid)
+    return out
 
 
 def multiprocess_phase(smi, per_forward, per_step):
     """The league as users start it: `python -m repro_torch.launch.train
     --workers W` on pommerman_lite (16 envs x unroll 16, policy-s) with
     main_minimax.json's two roles under FreezeGate(step_gate=8), to 16
-    learner steps per role: W = 2 and W = 4 with local actors, then W = 2
+    learner steps per role: W = 2 with local actors, then W = 2
     served by the coordinator's InfServer. Each run exits 0 with a clean
     shutdown; every learner reached 16 steps and froze; every process ran
     on the card (no plain version) and launched exactly: a learner its
@@ -1424,7 +1485,7 @@ def multiprocess_phase(smi, per_forward, per_step):
     numbers)."""
     spec = json.loads((ROOT / "examples" / "league_specs" / "main_minimax.json").read_text())
     for role in spec["roles"]:
-        role["gate"] = {"step_gate": RUNTIME_STEP_GATE}
+        role["gate"] = {"step_gate": MP_STEP_GATE}
     spec_path = ROOT / "build" / "chip_smoke" / "main_minimax_step_gate.json"
     spec_path.parent.mkdir(parents=True, exist_ok=True)
     spec_path.write_text(json.dumps(spec))
@@ -1441,19 +1502,11 @@ def multiprocess_phase(smi, per_forward, per_step):
                "--max-actor-restarts", "0"]
         if served:
             cmd += ["--served", "--sharded"]
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=MP_TIMEOUT_S)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
-        command_s = time.perf_counter() - t0
-        check(proc.returncode == 0,
-              f"multiprocess {mode}: exit {proc.returncode}\n{stderr[-6000:]}")
-        procs = league_procs(stdout.splitlines())
+        run = run_commands({mode: (cmd, MP_TIMEOUT_S)}, env=env)[mode]
+        command_s = run["seconds"]
+        check(run["rc"] == 0, f"multiprocess {mode}: exit {run['rc']} (None: timed out)\n"
+                              f"{run['stderr'][-6000:]}")
+        procs = league_procs(run["stdout"].splitlines())
         (coord,) = procs["coordinator"]
         learners, actors = procs.get("learner", []), procs.get("actor", [])
         check(coord["clean_shutdown"] and coord["worker_exit_codes"] == [0] * (2 + workers)
@@ -1544,7 +1597,7 @@ def multiprocess_phase(smi, per_forward, per_step):
             "segments_unsettled_at_stop": sum(r["segments_unsettled_at_stop"] for r in actors),
             "leases": coord["leases"], "launches": got}
         emit("multiprocess", card=smi, mode=mode, env="pommerman_lite", envs=ACT_E, unroll=ACT_T,
-             step_gate=RUNTIME_STEP_GATE, max_steps=MP_STEPS, **runs[mode])
+             step_gate=MP_STEP_GATE, max_steps=MP_STEPS, **runs[mode])
     return total, runs
 
 
@@ -1640,6 +1693,160 @@ def fleet_phase(dev, cfg, smi, per_forward):
            "peak_cuda_bytes": [r["kernels"]["peak_cuda_bytes"] for r in reps]}
     emit("fleet", card=smi, launches=launches, **out)
     return launches, out
+
+
+# the fault path: the port's four fault smokes (tests/smoke_torch_*.py) as
+# subprocesses on the card, each in a session of its own under its own
+# timeout; shm and kill-coordinator side by side, chaos and serving alone
+# (their thresholds are timings)
+FAULT_GROUPS = (("shm", "kill_coordinator"), ("chaos",), ("serving",))
+FAULT_TIMEOUT_S = {"shm": 90, "kill_coordinator": 150, "chaos": 240, "serving": 180}
+# the examples (examples/torch_*.py), called in this process
+EXAMPLE_ARGS = {"quickstart": [], "rps_nash": ["--iters", "8"],
+                "pommerman_league": ["--periods", "1", "--steps", "8",
+                                     "--eval-episodes", "4"],
+                "pommerman_league_async": ["--periods", "1", "--steps", "8",
+                                           "--eval-episodes", "4", "--async-seconds", "15"],
+                "serve_policy": []}
+
+
+def run_smokes(names):
+    """Run the smokes in `names` at once (`run_commands`), each on the card
+    under its own timeout. Returns name -> {rc, result (its last JSON line),
+    seconds, stdout and stderr tails}."""
+    runs = run_commands({name: ([sys.executable, str(ROOT / "tests" / f"smoke_torch_{name}.py"),
+                                 "--device", "cuda"], FAULT_TIMEOUT_S[name]) for name in names})
+    out = {}
+    for name, run in runs.items():
+        last = next((ln for ln in reversed(run["stdout"].splitlines()) if ln.startswith("{")),
+                    None)
+        out[name] = {"rc": run["rc"], "seconds": run["seconds"],
+                     "result": json.loads(last) if last else None,
+                     "stdout": run["stdout"][-4000:], "stderr": run["stderr"][-4000:]}
+    return out
+
+
+def faults_phase(smi, names):
+    """The league under real faults on the card: the port's four fault
+    smokes (`tests/smoke_torch_{shm,kill_coordinator,chaos,serving}.py`
+    with `--device cuda`), each passing its twin's criteria. Every child
+    that lived to print its `{"process": ...}` line ran on the card (card
+    memory in use, no plain version); the others (killed by the scenario)
+    were started with `--device cuda`, and the shm producer drew its
+    frames on the card. Each learner launched RMSNorm, the forward, dq,
+    dk/dv and the scan. Returns (launches summed over every child's line,
+    numbers)."""
+    import torch
+
+    torch.cuda.empty_cache()               # the smokes' processes share the card
+    t_phase = time.perf_counter()
+    runs = {}
+    for group in FAULT_GROUPS:
+        runs.update(run_smokes(group))
+    total, out = dict.fromkeys(names, 0), {}
+    for name, run in runs.items():
+        res = run["result"]
+        check(run["rc"] == 0 and res is not None and res["ok"],
+              f"faults: smoke {name} failed (exit {run['rc']})\n{run['stdout']}\n{run['stderr']}")
+        check(res["device"].startswith("cuda"), f"faults: smoke {name} ran on {res['device']}")
+        for child, rec in res["processes"].items():
+            k = rec["kernels"]
+            if k is None:
+                continue                   # killed by the scenario before it printed
+            check(k["peak_cuda_bytes"] and not any("|reference" in t for t in k["dispatch"]),
+                  f"faults: {name}'s {child} ran off the card or on a plain version: {k}")
+            for x, c in k["launches"].items():
+                total[x] = total.get(x, 0) + c
+            if child == "learner":
+                check(all(k["launches"][x] > 0 for x in k["launches"]),
+                      f"faults: {name}'s learner did not launch every kernel: {k['launches']}")
+        out[name] = {"command_s": run["seconds"], **res}
+    check(out["shm"]["child_device"].startswith("cuda"),
+          f"faults: the shm producer's frames lay on {out['shm']['child_device']}")
+    seconds = time.perf_counter() - t_phase
+    emit("faults", card=smi, seconds=seconds, launches=total, smokes=out)
+    return total, {"seconds": seconds, "smokes": out}
+
+
+def load_example(name):
+    """`examples/torch_<name>.py` as a module (`examples/` is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(counters, smi, per_forward, per_step):
+    """The port's four examples on the card, each through its `main(argv)`
+    with `--device cuda`, no plain version on the card:
+    - quickstart (rps, 16 envs x 8, 2 periods x 8 iterations): finite
+      losses, 2 freezes, throughput above 0, and launches of exactly its 16
+      learner steps and its segments' 2T + 1 forwards each, as
+      `league_loop` counts them;
+    - rps_nash `--iters 8`, independent and FSP: every distribution sums
+      to 1 within 1e-5; max |p - 1/3| and the mean peak are recorded, not
+      gated (the twin asserts nothing there);
+    - pommerman_league `--periods 1 --steps 8`, lockstep, then with
+      `--async-seconds`: each win rate in [0, 1]; lockstep freezes both
+      roles once, the runtime at least one role;
+    - serve_policy: finite logits, the decode ms per token, 32 requests in
+      the one batch `max_batch=32` allows.
+    Returns (launches summed over the examples, numbers)."""
+    out, total = {}, {}
+    for name, args in EXAMPLE_ARGS.items():
+        mod = load_example(name.removesuffix("_async"))
+        zero(counters)
+        t0 = time.perf_counter()
+        res = mod.main(["--device", "cuda"] + args)
+        seconds = time.perf_counter() - t0
+        got = read(counters)
+        check_on_card(f"examples {name}")
+        for x, c in got.items():
+            total[x] = total.get(x, 0) + c
+        rec = {"seconds": seconds, "launches": got}
+        if name == "quickstart":
+            steps, T = res["learner_steps"], res["unroll_len"]
+            check(steps == 16 and np.isfinite(res["losses"]).all(),
+                  f"examples quickstart: {steps} steps, losses {res['losses']}")
+            check(res["league"]["num_freezes"] == 2, f"examples quickstart: {res['league']}")
+            check(res["throughput"]["rfps"] > 0 and res["throughput"]["cfps"] > 0,
+                  f"examples quickstart: throughput {res['throughput']}")
+            want = {x: steps * ((2 * T + 1) * per_forward.get(x, 0) + per_step["env"][x])
+                    for x in got}
+            check(got == want, f"examples quickstart: launches {got}, want {want}")
+            rec.update(losses=[round(x, 4) for x in res["losses"]], league=res["league"],
+                       throughput=res["throughput"])
+        elif name == "rps_nash":
+            for mode, r in res.items():
+                check(r["dists"].shape == (8, 3)
+                      and np.abs(r["dists"].sum(1) - 1).max() <= 1e-5,
+                      f"examples rps_nash {mode}: distributions {r['dists']}")
+            rec.update({mode: {"final": r["final"].round(4).tolist(), "max_dev": r["max_dev"],
+                               "avg_peak": r["avg_peak"]} for mode, r in res.items()},
+                       fsp_closer_to_uniform=res["fsp"]["max_dev"] < res["independent"]["max_dev"])
+        elif name.startswith("pommerman_league"):
+            state = res["league_states"][0]
+            check(all(0.0 <= w <= 1.0 for w in res["curve"]),
+                  f"examples {name}: win rates {res['curve']}")
+            check(state["num_freezes"] == 2 if name == "pommerman_league"
+                  else state["num_freezes"] >= 1, f"examples {name}: league {state}")
+            rec.update(curve=res["curve"], league=state)
+        else:
+            check(np.isfinite(res["logits"]).all(), "examples serve_policy: non-finite logits")
+            check(res["requests_served"] == 32 and res["batches_run"] == 1,
+                  f"examples serve_policy: {res['requests_served']} requests in "
+                  f"{res['batches_run']} batches")
+            rec.update(decode_ms_per_token=res["decode_ms_per_token"],
+                       cache_length=res["cache_length"], tokens0=res["tokens"][0].tolist())
+        out[name] = rec
+    for x in ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "reverse_discounted_scan_p"):
+        check(total[x] > 0, f"examples: {x} never launched")
+    emit("examples", card=smi, launches=total, examples=out)
+    return total, out
 
 
 def norms_per_pass(cfg):
@@ -2907,28 +3114,18 @@ def mesh_split_phase(smi, names):
     times out, a collective was refused, or a case's line is missing or
     did not hold. Returns (launches summed over the ranks, each rank's
     launches, numbers)."""
-    import signal
-
     import torch
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()               # the ranks need the card's memory
     cmd = [sys.executable, str(ROOT / "tools" / "mesh_two_ranks.py"), "--split"]
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=MESH_SPLIT_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        check(False, f"mesh_split: no result in {MESH_SPLIT_TIMEOUT_S} s")
-    finally:
-        with contextlib.suppress(ProcessLookupError):
-            os.killpg(proc.pid, signal.SIGKILL)    # no rank outlives the phase
+    run = run_commands({"mesh_split": (cmd, MESH_SPLIT_TIMEOUT_S)})["mesh_split"]
+    out, err = run["stdout"], run["stderr"]
+    check(run["rc"] is not None, f"mesh_split: no result in {MESH_SPLIT_TIMEOUT_S} s")
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     seconds = time.perf_counter() - t_phase
-    check(proc.returncode == 0,
-          f"mesh_split: exit {proc.returncode}; stdout tail {out[-2000:]!r}; "
+    check(run["rc"] == 0,
+          f"mesh_split: exit {run['rc']}; stdout tail {out[-2000:]!r}; "
           f"stderr tail {err[-2000:]!r}")
     probe = next((ln for ln in lines if "probe" in ln), None)
     check(probe is not None and not probe["refused"],
@@ -3030,12 +3227,19 @@ def main() -> int:
     lap("build")
 
     # -- 3. kernels against their plain versions ------------------------------
-    def device_ms(fn, n=20):
+    def device_ms(fn, n=20, plain=False):
         """Median device time of one call, from CUDA events around each of n
-        back-to-back calls. A sleep kernel keeps the card busy while the host
-        enqueues them, so host launch overhead does not show as device time."""
+        back-to-back calls (SLOW_CALLS for a `plain` version whose warm call
+        takes SLOW_CALL_S or more, for the script's time). A sleep kernel keeps the card busy
+        while the host enqueues them, so host launch overhead does not show
+        as device time."""
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if plain and time.perf_counter() - t0 >= SLOW_CALL_S:
+            n = min(n, SLOW_CALLS)
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(n)]
         torch.cuda._sleep(100_000_000)
@@ -3141,7 +3345,7 @@ def main() -> int:
         tol = TOL["bfloat16"] if dtype == torch.bfloat16 else TOL["float32"]["rmsnorm"]
         check(err <= tol, f"rmsnorm {label} {shape} {dtype}: err {err} > {tol}")
         ms = device_ms(lambda: rmsnorm(x, w))
-        plain_ms = device_ms(lambda: rmsnorm_ref(x, w))
+        plain_ms = device_ms(lambda: rmsnorm_ref(x, w), plain=True)
         library_ms = None                     # F.rms_norm takes one weight row
         if models == 1:
             wl = w.to(dtype)
@@ -3275,7 +3479,7 @@ def main() -> int:
             check(err_without_cap > tol,
                   f"flash {label}: the cap moves the result only {err_without_cap} <= {tol}")
         ms = device_ms(lambda: flash_attention_fwd(q, k, v, **kw))
-        plain_ms = device_ms(lambda: attention_fwd_ref(q, k, v, **kw))
+        plain_ms = device_ms(lambda: attention_fwd_ref(q, k, v, **kw), plain=True)
         library_ms = None
         if sdpa_computes(Tq, Tk, causal, window, cap, kv_len):
             library_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -3525,7 +3729,7 @@ def main() -> int:
             r = dict(shape=[B, H, KV, Tq, Tk, d], strided=layout == "bthd",
                      dtype=dname[dtype], window=window, cap=cap, kv_len=kv_len,
                      label=label, max_abs_err=err_of[name], tol=tol_of[name],
-                     ms=ms, plain_ms=device_ms(plain_fn),
+                     ms=ms, plain_ms=device_ms(plain_fn, plain=True),
                      library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
             if name == "flash_attention_bwd_preprocess":
                 r["note"] = "runs inside flash_attention_bwd_dq: ms is the fused kernel's"
@@ -3570,7 +3774,8 @@ def main() -> int:
         r = dict(shape=[B, T], dtype=dname[dtype], offset=off, label=label, max_abs_err=fwd_err,
                  bwd_err=bwd_err, tol=SCAN_TOL,
                  ms=device_ms(lambda: reverse_discounted_scan_p(deltas, decays, init)),
-                 plain_ms=device_ms(lambda: reverse_discounted_scan_ref(deltas, decays, init)),
+                 plain_ms=device_ms(lambda: reverse_discounted_scan_ref(deltas, decays, init),
+                                    plain=True),
                  library_ms=None, bound_ms=b_ms, bound_by=b_by)
         results["reverse_discounted_scan_p"].append(r)
         emit("kernel", name="reverse_discounted_scan_p", **r)
@@ -3831,10 +4036,15 @@ def main() -> int:
     lap("multiprocess")
     launches["fleet"], fleet_out = fleet_phase(dev, cfg_env, smi, per_forward)
     lap("fleet")
-    for path in ("actors", "league_loop", "runtime", "transport", "multiprocess", "fleet"):
+    launches["faults"], faults_out = faults_phase(smi, list(SOURCES))
+    lap("faults")
+    launches["examples"], examples_out = examples_phase(counters, smi, per_forward, per_step)
+    lap("examples")
+    for path in ("actors", "league_loop", "runtime", "transport", "multiprocess", "fleet",
+                 "faults", "examples"):
         for name in ("rmsnorm", "flash_attention_fwd"):
             check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
-    for path in ("league_loop", "runtime", "multiprocess"):
+    for path in ("league_loop", "runtime", "multiprocess", "faults", "examples"):
         for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                      "reverse_discounted_scan_p"):
             check(launches[path][name] > 0, f"{name} was never launched on the {path} path")
@@ -3953,6 +4163,8 @@ def main() -> int:
                            round(v["actor_segment_only_frames_per_s"], 1),
                            round(v["learner_steps_per_s"], 2)] for m, v in mp_out.items()},
          fleet=[round(fleet_out["gateway_rows_per_s"]), round(fleet_out["inproc_rows_per_s"])],
+         faults={n: round(v["command_s"], 1) for n, v in faults_out["smokes"].items()},
+         examples={n: round(v["seconds"], 1) for n, v in examples_out.items()},
          decode={a: [round(v["prefill_ms_median"], 3), round(v["decode_ms_median"], 3),
                      v["consistency"]["float32"], v.get("card_vs_cpu", {}).get("max_err")]
                  for a, v in decode_out.items()},

@@ -419,7 +419,9 @@ def run_coordinator(spec, *, env_name: str = "rps",
                     league.touch_actor(actor_id)
                 reaped = league.reap_leases(dead_actors=stale)
                 if reaped and verbose:
-                    print(f"[coordinator] reaped {len(reaped)} lease(s) "
+                    # the holders name a live actor reaped on its TTL too
+                    print(f"[coordinator] reaped {len(reaped)} lease(s) of "
+                          f"{[l.actor_id for l in reaped]} "
                           f"(stale actors: {stale})", flush=True)
 
         reaper = None

@@ -1,17 +1,19 @@
 """The port's boundaries: no JAX in it, CUDA by default, kernels from source.
 
-- No module of `repro_torch`, and none of `chip_smoke.py`,
-  `tools/profile_infserver.py`, `tools/profile_learner.py`,
-  `tools/time_flash.py`, `tools/time_norm_scan.py`, `tools/card_procs.py` and
-  `tests/test_torch_cuda.py` (which runs
+- No module of `repro_torch`, and none of `chip_smoke.py`, the scripts in
+  `tools/`, the port's fault smokes (`tests/smoke_torch_*.py` and their
+  `tests/torch_smoke_lib.py`), its examples (`examples/torch_*.py`) and
+  `tests/test_torch_cuda.py` (which run
   on the card's machine, where there is no jax), imports jax or the JAX
   package `repro` (an AST walk, and a fresh interpreter that imports the
   whole port and finds no jax in `sys.modules`).
 - The command lines the port starts name only `repro_torch` modules, never
   a `repro` one (an AST walk cannot see a module named in a string): the
   multiprocess league's children (`_spawn_role`), the fleet's replicas
-  (`spawn_replica`, both with `subprocess.Popen` captured) and every
-  command that `launch.k8s.render()` writes.
+  (`spawn_replica`, both with `subprocess.Popen` captured), every
+  command that `launch.k8s.render()` writes, and every child the fault
+  smokes start (their `torch_smoke_lib.Child` captured; the shm
+  producer's `-c` source walked).
 - Entry points default to CUDA and raise where there is none.
 - The kernel build raises without nvcc: there is no prebuilt fallback.
 - chip_smoke.py fails, printing no result, without a card.
@@ -36,9 +38,8 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
-def _imported_roots(path: Path):
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+def _roots_of(source: str):
+    for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name.split(".")[0]
@@ -46,14 +47,21 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+def _imported_roots(path: Path):
+    return _roots_of(path.read_text())
+
+
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tools" / "profile_infserver.py",
-                                          ROOT / "tools" / "profile_learner.py",
-                                          ROOT / "tools" / "time_flash.py",
-                                          ROOT / "tools" / "time_norm_scan.py",
-                                          ROOT / "tools" / "card_procs.py",
-                                          ROOT / "tests" / "test_torch_cuda.py"]
+    tools = sorted((ROOT / "tools").glob("*.py"))
+    smokes = sorted((ROOT / "tests").glob("smoke_torch_*.py"))
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert {f.name for f in tools} >= {
+        "profile_infserver.py", "profile_learner.py", "time_flash.py", "time_norm_scan.py",
+        "card_procs.py", "mesh_two_ranks.py", "train_memory.py"}
+    assert len(smokes) == 4 and len(examples) == 4
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools + smokes
+             + [ROOT / "tests" / "torch_smoke_lib.py"] + examples
+             + [ROOT / "tests" / "test_torch_cuda.py"])
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -170,3 +178,108 @@ def test_k8s_commands_run_only_port_modules(kw):
     _assert_port_modules([m for c in cmds for m in _modules_run(c)])
     assert "repro.launch" not in out and "repro.distributed" not in out
 
+
+
+class _Stop(Exception):
+    """Ends a captured smoke once its children have been started."""
+
+
+def _capture_smoke_children(monkeypatch):
+    """Replace the smokes' `Child` with a recorder: each command is kept, a
+    banner wait answers a fake address (the shm producer's ends the run),
+    and the first progress poll ends the run."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_smoke_lib as lib
+
+    started = []
+
+    class FakeProc:
+        returncode = None
+
+        def poll(self):
+            return None
+
+    class FakeChild:
+        def __init__(self, name, cmd, t0, extra_env=None):
+            started.append(cmd)
+            self.name, self.cmd, self.pid, self.exit_s = name, cmd, 0, None
+            self.proc, self.lines = FakeProc(), []
+
+        def wait_for(self, pattern, timeout):
+            if "-c" in self.cmd:
+                raise _Stop
+            return "127.0.0.1:1"
+
+        def kill_group(self):
+            pass
+
+        def records(self):
+            return []
+
+        def tail(self, n=12):
+            return ""
+
+    def stop(address):
+        raise _Stop
+
+    monkeypatch.setattr(lib, "Child", FakeChild)
+    monkeypatch.setattr(lib, "progress", stop)
+    return started
+
+
+@pytest.mark.parametrize("smoke,n", [("smoke_torch_kill_coordinator", 3),
+                                     ("smoke_torch_chaos", 7), ("smoke_torch_shm", 1)])
+def test_fault_smokes_start_only_port_modules(smoke, n, monkeypatch, capsys):
+    """The league smokes start `python -m repro_torch.launch.train` with the
+    smoke's `--device`; the shm producer's `-c` source imports the port."""
+    import importlib
+
+    started = _capture_smoke_children(monkeypatch)
+    mod = importlib.import_module(smoke)
+    with pytest.raises(_Stop):
+        mod.main(["--device", "cpu"])
+    assert len(started) == n
+    for cmd in started:
+        if "-c" in cmd:
+            src = cmd[cmd.index("-c") + 1]
+            roots = set(_roots_of(src))
+            assert "repro_torch" in roots and not roots & FORBIDDEN, roots
+        else:
+            assert _modules_run(cmd) == ["repro_torch.launch.train"]
+            assert cmd[cmd.index("--device") + 1] == "cpu"
+
+
+def test_serving_smoke_starts_only_port_replicas(monkeypatch):
+    """The serving smoke's fleet is `spawn_fleet`'s `repro_torch.launch.serve
+    --replica` processes, each given the smoke's `--device`."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import repro_torch.serving as serving
+    import smoke_torch_serving as smoke
+    from repro_torch.serving import fleet
+
+    started = []
+
+    class FakeProc:
+        pid, returncode = 0, 0
+
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            self.stdout = io.StringIO("REPLICA 127.0.0.1:1\n")
+
+        def poll(self):
+            return 0
+
+        def wait(self, timeout=None):
+            return 0
+
+    def stop(*a, **kw):
+        raise _Stop
+
+    monkeypatch.setattr(fleet.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(serving, "ServingGateway", stop)
+    with pytest.raises(_Stop):
+        smoke.main(["--device", "cpu"])
+    assert len(started) == smoke.REPLICAS
+    for cmd in started:
+        assert _modules_run(cmd) == ["repro_torch.launch.serve"]
+        assert cmd[cmd.index("--device") + 1] == "cpu"
