@@ -126,7 +126,10 @@ drives the port's paths on the card:
   qwen3-moe's MoE layer (128 experts, 4 x 1,024 tokens) against
   `moe_apply`, and the factory's prefill and decode fns (tensor-parallel
   serving) for command-r-35b at full width (2 of 40 layers) bitwise
-  against the unsharded prefill and decode. The multiprocess phase's
+  against the unsharded prefill and decode; one more bf16 step under the
+  per-rank counter, its FLOPs, collectives and peak held against the
+  dry-run's count of the same step (made by a subprocess started with the
+  script, `DryrunHolds`). The multiprocess phase's
   served run is `--served --sharded`, its InfServer on a (1, 1) mesh of the
   coordinator's card;
 - mesh_split: `tools/mesh_two_ranks.py --split`, two gloo ranks of the
@@ -135,9 +138,11 @@ drives the port's paths on the card:
   and 4 decode steps at full width, 2 layers, fp32, through the factory's
   fns, and one qwen3-moe unit (64 of the 128 experts a rank, no
   `moe_ep`) forward and backward on 4 x 1,024 tokens, each within 1e-4 of
-  one rank's run, each rank's state bytes printed; a refused collective, a
-  timeout or a missing case fails the run. Each rank's launches are the
-  kernel line's `mesh_split` path.
+  one rank's run, each rank's state bytes printed; rwkv6-3b's prefill
+  under the per-rank counter in each rank, its FLOPs and collectives by
+  kind equal to the dry-run's; a refused collective, a timeout or a
+  missing case fails the run. Each rank's launches are the kernel line's
+  `mesh_split` path.
 
 Phase 3 and 3b also hold the flash kernels at head dim 80 (hubert's train
 shape in bf16, the fp32 regime at T = 1,024), the forward at G = 12
@@ -2784,6 +2789,10 @@ def train_families_phase(dev, counters, smi):
 # (128 experts, top-8) at full width on 4 x 1,024 tokens
 MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_TRAIN_B = "qwen3-8b", 2, 1
 MESH_TRAIN_STEPS = 3                           # timed bf16 steps, after one warm-up
+# the counted step's holds against the dry-run's count (`launch.dryrun`)
+COUNT_FLOPS_RTOL = 1e-9
+COUNT_PEAK_RTOL = 0.01                         # predicted arguments + temporaries
+DRYRUN_HOLDS_TIMEOUT_S = 600
 MESH_MOE_ARCH, MESH_MOE_B, MESH_MOE_T = "qwen3-moe-235b-a22b", 4, 1024
 MESH_FLUSH_ROUNDS = 20
 # command-r-35b's prefill (DECODE_B x DECODE_T) and greedy decode steps
@@ -2791,7 +2800,94 @@ MESH_FLUSH_ROUNDS = 20
 MESH_DECODE_ARCH, MESH_DECODE_LAYERS, MESH_DECODE_STEPS = "command-r-35b", 2, 4
 
 
-def mesh_phase(dev, counters, smi, per_forward):
+def mesh_train_cfg(compute_dtype):
+    """The mesh phase's qwen3-8b: full width, MESH_TRAIN_LAYERS layers,
+    fp32 params."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MESH_TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS,
+                               compute_dtype=compute_dtype, param_dtype="float32")
+
+
+def mesh_train_shape():
+    """Register the mesh phase's train shape (1 x SEQ_T); its name."""
+    from repro_torch.configs import INPUT_SHAPES, InputShape
+    INPUT_SHAPES["train_4k_b1"] = InputShape("train_4k_b1", SEQ_T, MESH_TRAIN_B, "train")
+    return "train_4k_b1"
+
+
+def dryrun_holds(path):
+    """The dry-run records (`launch.dryrun.run_one`, with `measured`) that
+    the mesh phases hold a real rank's counts against, written to `path` as
+    JSON: `mesh_train`, the mesh phase's bf16 qwen3-8b step on (1, 1);
+    `mesh_split_prefill`, the prefill that `tools/mesh_two_ranks.py
+    --split` counts on each of its two ranks, on (1, 2); with the seconds
+    they took. Meta tensors and a fake process group: no card."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tools"))
+    import mesh_two_ranks as two
+    two.serve_shapes()
+    recs = {"mesh_train": dryrun.run_one(MESH_TRAIN_ARCH, mesh_train_shape(),
+                                         cfg=mesh_train_cfg("bfloat16"), mesh_shape=(1, 1),
+                                         verbose=False),
+            "mesh_split_prefill": dryrun.run_one(two.COUNTED_ARCH, "two_ranks_prefill",
+                                                 cfg=two.serve_cfg(two.COUNTED_ARCH),
+                                                 mesh_shape=(1, 2), verbose=False)}
+    for name, rec in recs.items():
+        if rec["status"] != "ok":
+            raise RuntimeError(f"dry-run {name}: {rec.get('error')}\n{rec.get('traceback')}")
+    Path(path).write_text(json.dumps({"seconds": time.perf_counter() - t0,
+                                      "records": recs}))
+
+
+class DryrunHolds:
+    """`dryrun_holds` in a subprocess started with the script, on the host's
+    CPU beside the card's work, so its cost is off the wall; `get` waits for
+    it once. The subprocess is killed if the script ends first."""
+
+    def __init__(self):
+        import atexit
+        self.path = ROOT / "build" / "dryrun_holds.json"
+        self.path.parent.mkdir(exist_ok=True)
+        self.path.unlink(missing_ok=True)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.dryrun_holds(sys.argv[1])",
+             str(self.path)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        self.records, self.seconds, self.waited = None, None, None
+        atexit.register(self.close)
+
+    def get(self, name):
+        if self.records is None:
+            t0 = time.perf_counter()
+            try:
+                _, err = self.proc.communicate(timeout=DRYRUN_HOLDS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                self.close()
+                check(False, f"dry-run holds: no records in {DRYRUN_HOLDS_TIMEOUT_S} s")
+            check(self.proc.returncode == 0,
+                  f"dry-run holds: exit {self.proc.returncode}: {err[-3000:]}")
+            made = json.loads(self.path.read_text())
+            self.records, self.seconds = made["records"], made["seconds"]
+            self.waited = time.perf_counter() - t0
+        return self.records[name]
+
+    def close(self):
+        from torch_smoke_lib import kill_group
+        if self.proc.poll() is None:
+            kill_group(self.proc.pid)
+            self.proc.wait()
+
+
+def collectives_of(measured) -> dict:
+    """A dry-run record's collectives under `launch.counters.collective_bytes`'
+    keys."""
+    return {"total": measured["collective_bytes"], **measured["coll_breakdown"],
+            **measured["coll_counts"]}
+
+
+def mesh_phase(dev, counters, smi, per_forward, holds):
     """The mesh on the card, one process, a (1, 1) NCCL DeviceMesh from
     `launch.mesh.make_local_mesh()`:
 
@@ -2805,7 +2901,14 @@ def mesh_phase(dev, counters, smi, per_forward):
         CARD_VS_CPU_TOL of max(1, max |.|) of the unsharded
         `build_seq_train_step` on the card; then the whole step (adamw on
         the DTensor params and state) at bf16 compute, median of
-        MESH_TRAIN_STEPS, peak MB;
+        MESH_TRAIN_STEPS, peak MB; then one more step under the per-rank
+        counter (`launch.counters.Counter`), held against the dry-run's
+        count for the same config, shape and mesh (`holds`, a
+        `DryrunHolds`): its FLOPs within COUNT_FLOPS_RTOL, its collectives
+        by kind equal, the predicted peak (arguments + temporaries) within
+        COUNT_PEAK_RTOL of `max_memory_allocated()` over the step less what
+        was allocated before it that is not the step's arguments, and its
+        launches those of the uncounted steps;
     (c) `moe_apply_ep` on qwen3-moe's MoE
         layer at full width, 4 x 1,024 tokens, fp32: y, aux and every grad
         within CARD_VS_CPU_TOL of `moe_apply`'s, the routing slots equal;
@@ -2823,6 +2926,7 @@ def mesh_phase(dev, counters, smi, per_forward):
     from repro_torch.distributed import sharding as SH
     from repro_torch.infserver import InfServer
     from repro_torch.kernels import dispatch
+    from repro_torch.launch.counters import Counter
     from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
     from repro_torch.launch.steps import make_dryrun_step, make_optimizer
     from repro_torch.learners import build_seq_train_step
@@ -2913,16 +3017,15 @@ def mesh_phase(dev, counters, smi, per_forward):
         del server, theta, phi
 
         # -- (b) the dry-run factory's train step at full width -----------------
-        INPUT_SHAPES["train_4k_b1"] = InputShape("train_4k_b1", SEQ_T, MESH_TRAIN_B, "train")
-        base = dataclasses.replace(get_arch(MESH_TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS)
+        train_shape = mesh_train_shape()
         want = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv", "reverse_discounted_scan_p")
         brng = np.random.default_rng(22)
-        batch = seq_batch(brng, SEQ_T, base.vocab_size, dev, B=MESH_TRAIN_B)
-        cfg = dataclasses.replace(base, compute_dtype="float32", param_dtype="float32")
+        cfg = mesh_train_cfg("float32")
+        batch = seq_batch(brng, SEQ_T, cfg.vocab_size, dev, B=MESH_TRAIN_B)
         torch.cuda.empty_cache()
         params = init_params(torch.Generator(device=dev).manual_seed(23), cfg)
-        built = make_dryrun_step(cfg, "train_4k_b1", mesh)
+        built = make_dryrun_step(cfg, train_shape, mesh)
         pshard, oshard, bshard = built["in_shardings"]
         pd, bd = SH.distribute(params, pshard, mesh), SH.distribute(batch, bshard, mesh)
         zero(counters)
@@ -2946,9 +3049,9 @@ def mesh_phase(dev, counters, smi, per_forward):
         del g0, g1, pd, params
         torch.cuda.empty_cache()
 
-        cfg = dataclasses.replace(base, compute_dtype="bfloat16", param_dtype="float32")
+        cfg = mesh_train_cfg("bfloat16")
         params = init_params(torch.Generator(device=dev).manual_seed(23), cfg)
-        built = make_dryrun_step(cfg, "train_4k_b1", mesh)
+        built = make_dryrun_step(cfg, train_shape, mesh)
         pshard, oshard, bshard = built["in_shardings"]
         opt = make_optimizer(cfg)
         pd = SH.distribute(params, pshard, mesh)
@@ -2967,6 +3070,46 @@ def mesh_phase(dev, counters, smi, per_forward):
                 step_ms.append(ms)
         check(all(np.isfinite(losses)), f"mesh: bf16 step losses {losses}")
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+        # the counted step, held against the dry-run's count
+        rec = holds.get("mesh_train")
+        meas = rec["measured"]
+        args_bytes = sum(t.to_local().numel() * t.element_size()
+                         for t in tree_leaves((pd, od, bd)))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero(counters)
+        with Counter() as counter:
+            pd, od, m = built["fn"](pd, od, bd)
+            torch.cuda.synchronize()
+        n = add("mesh: counted bf16 step")
+        step_peak = torch.cuda.max_memory_allocated() - (before - args_bytes)
+        got = counter.result()
+        check(n == n_sharded, f"mesh: counted step launches {n}, uncounted {n_sharded}")
+        flops_rel = abs(got["flops"] - meas["flops"]) / meas["flops"]
+        check(flops_rel <= COUNT_FLOPS_RTOL,
+              f"mesh: counted step FLOPs {got['flops']} vs the dry-run's {meas['flops']}")
+        check(got["collectives"] == collectives_of(meas),
+              f"mesh: counted step collectives {got['collectives']} vs the dry-run's "
+              f"{collectives_of(meas)}")
+        predicted = rec["memory"]["argument_size_in_bytes"] + meas["temp_size_in_bytes"]
+        peak_gap = (step_peak - predicted) / step_peak
+        check(abs(peak_gap) <= COUNT_PEAK_RTOL,
+              f"mesh: counted step peak {step_peak} B vs predicted {predicted} B "
+              f"({100 * peak_gap:.2f} %)")
+        out["counted"] = {
+            "flops": got["flops"], "dryrun_flops": meas["flops"], "flops_rel_err": flops_rel,
+            "flops_by_op": got["flops_by_op"], "bytes": got["bytes"],
+            "dryrun_bytes": meas["bytes"], "collectives": got["collectives"],
+            "kernels": got["kernels"], "launches": n, "args_bytes": args_bytes,
+            "dryrun_args_bytes": rec["memory"]["argument_size_in_bytes"],
+            "allocated_before": before, "step_peak_bytes": step_peak,
+            "dryrun_temp_bytes": meas["temp_size_in_bytes"], "predicted_peak_bytes": predicted,
+            "peak_gap": peak_gap, "counter_temp_bytes": got["temp_size_in_bytes"],
+            "dryrun_holds_s": holds.seconds, "dryrun_holds_waited_s": holds.waited}
+        emit("mesh_counted_step", card=smi, mesh=[1, 1], flops_rtol=COUNT_FLOPS_RTOL,
+             peak_rtol=COUNT_PEAK_RTOL, **out["counted"])
         out["train"] = {"arch": MESH_TRAIN_ARCH, "layers": MESH_TRAIN_LAYERS,
                         "batch": MESH_TRAIN_B, "tokens": SEQ_T, "max_abs_err": errs,
                         "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
@@ -3100,7 +3243,7 @@ MESH_SPLIT_CASES = ("split_prefill_and_decode:rwkv6-3b",
 MESH_SPLIT_TIMEOUT_S = 180
 
 
-def mesh_split_phase(smi, names):
+def mesh_split_phase(smi, names, holds):
     """RWKV6, Mamba and the experts split over 'model' on two gloo ranks of
     this card: `tools/mesh_two_ranks.py --split` as a subprocess (its own
     session, killed whole past MESH_SPLIT_TIMEOUT_S). It probes the
@@ -3110,9 +3253,13 @@ def mesh_split_phase(smi, names):
     qwen3-moe unit (attention, then the MoE without `moe_ep`, 64 of 128
     experts a rank) forward and backward on 4 x 1,024 tokens, each against
     the single rank's run within 1e-4 of max(1, max |.|), no plain version
-    on the card. The phase fails when the subprocess exits non-zero or
-    times out, a collective was refused, or a case's line is missing or
-    did not hold. Returns (launches summed over the ranks, each rank's
+    on the card. rwkv6-3b's held prefill runs under the per-rank counter
+    in each rank: each rank's FLOPs and collectives by kind (count and
+    operand bytes) must equal the dry-run's for the same config, shape and
+    mesh (`holds`), and its launches those of the uncounted warm-up. The
+    phase fails when the subprocess exits non-zero or times out, a
+    collective was refused, or a case's line is missing or did not hold.
+    Returns (launches summed over the ranks, each rank's
     launches, numbers)."""
     import torch
 
@@ -3137,6 +3284,14 @@ def mesh_split_phase(smi, names):
         check(cases[name]["ok"], f"mesh_split: {name} did not hold: {cases[name]}")
     done = next((ln for ln in lines if ln.get("two_ranks") == "split_done"), None)
     check(done is not None and done["ok"], f"mesh_split: {done}")
+    rec = holds.get("mesh_split_prefill")
+    arch, meas = rec["arch"], rec["measured"]
+    want = {"flops": meas["flops"], "collectives": collectives_of(meas)}
+    counted = cases[f"split_prefill_and_decode:{arch}"]
+    check(counted["launches_as_uncounted"], f"mesh_split: the counter changed {arch}'s launches")
+    each = (counted.get("counted_prefill") or {}).get("each_rank", [])
+    check(len(each) == 2 and all(r == want for r in each),
+          f"mesh_split: {arch}'s counted prefill {each} vs the dry-run's {want}")
     ranks = [dict.fromkeys(names, 0) for _ in range(2)]
     for case in cases.values():
         for r, got in enumerate(case["launches"]["each_rank"]):
@@ -3148,7 +3303,8 @@ def mesh_split_phase(smi, names):
                 check(got[k] > 0, f"mesh_split: {name}: rank {r} never launched {k}")
     total = {k: sum(r[k] for r in ranks) for k in names}
     emit("mesh_split_phase", card=smi, seconds=seconds, launches=total,
-         launches_each_rank=ranks, cases=[cases[n] for n in MESH_SPLIT_CASES], probe=probe)
+         launches_each_rank=ranks, cases=[cases[n] for n in MESH_SPLIT_CASES], probe=probe,
+         counted_prefill={"arch": arch, "each_rank": each, "dryrun": want})
     return total, ranks, {"seconds": seconds, "cases": {n: cases[n] for n in MESH_SPLIT_CASES}}
 
 
@@ -3169,7 +3325,7 @@ def main() -> int:
     from repro_torch.actors.policy import make_obs_policy
     from repro_torch.configs import get_arch
     from repro_torch.infserver import InfServer
-    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import _build, cost, dispatch
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -3205,6 +3361,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # the dry-run's counts that the mesh phases hold, made beside the card's work
+    holds = DryrunHolds()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3250,9 +3408,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in ev)
 
-    def bound(nbytes, flops, dtype_name):
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS[dtype_name]
+    def bound(work, dtype_name):
+        """The least ms the card could take for `work` (`kernels/cost.py`):
+        its bytes at HBM_BYTES_PER_S or its operations at the dtype's peak,
+        whichever is larger."""
+        t_bytes = work.bytes / HBM_BYTES_PER_S
+        t_ops = work.flops / PEAK_FLOPS[dtype_name]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     def flex_ms(q, k, v, do, scale, window, cap):
@@ -3350,24 +3511,12 @@ def main() -> int:
         if models == 1:
             wl = w.to(dtype)
             library_ms = device_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6))
-        b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * 4,
-                           4 * x.numel(), "float32")
+        b_ms, b_by = bound(cost.rmsnorm(x, w), "float32")
         r = dict(shape=list(shape), weight_rows=models, dtype=dname[dtype], label=label,
                  max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
         results["rmsnorm"].append(r)
         emit("kernel", name="rmsnorm", **r)
-
-    def live_pairs(Tq, Tk, causal, window, kv_len=None):
-        qp = torch.arange(Tq, device=dev)[:, None]
-        kp = torch.arange(Tk, device=dev)[None, :]
-        mask = (kp < (Tk if kv_len is None else kv_len)) & torch.ones(
-            Tq, Tk, dtype=torch.bool, device=dev)
-        if causal:
-            mask &= kp <= qp
-        if window:
-            mask &= qp - kp < window
-        return int(mask.sum().item())
 
     def sdpa_computes(Tq, Tk, causal, window, cap, kv_len):
         """Whether one SDPA call computes this attention: no softcap, no
@@ -3493,10 +3642,8 @@ def main() -> int:
             flex = flex_ms(q, k, v, None, d ** -0.5, window or Tq, cap)
             emit("flex_attention", label=label, **flex)
             library_ms = flex.get("fwd_ms")
-        nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size() \
-            + lse.numel() * 4
-        flops = 4 * d * B * H * live_pairs(Tq, Tk, causal, window, kv_len)
-        b_ms, b_by = bound(nbytes, flops, dname[dtype])
+        b_ms, b_by = bound(cost.attention_fwd(q, k, v, causal=causal, window=window,
+                                              kv_len=kv_len), dname[dtype])
         r = dict(shape=[B, H, KV, Tq, Tk, d], strided=not q.is_contiguous(),
                  dtype=dname[dtype], mixed=mixed, causal=causal, window=window,
                  cap=cap, kv_len=kv_len, label=label, max_abs_err=err, tol=tol,
@@ -3524,9 +3671,7 @@ def main() -> int:
     tol = TOL["bfloat16"]
     check(err <= tol, f"flash hubert prefill: err {err} > {tol}")
     check(bool(torch.isfinite(o.float()).all()), "flash hubert prefill: non-finite o")
-    nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size() \
-        + lse.numel() * 4
-    b_ms, b_by = bound(nbytes, 4 * d * B * H * T * T, "bfloat16")
+    b_ms, b_by = bound(cost.attention_fwd(q, k, v, causal=False), "bfloat16")
     r = dict(shape=[B, H, H, T, T, d], strided=True, dtype="bfloat16", mixed=False,
              causal=False, window=0, cap=0.0, kv_len=None, label="hubert prefill",
              checked_queries=[[0, SLICE_Q], [T - SLICE_Q, T]], max_abs_err=err, tol=tol,
@@ -3677,18 +3822,11 @@ def main() -> int:
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flash backward {label}: two identical calls differ")
         delta = got[0]
-        esz = q.element_size()
-        live = live_pairs(Tq, Tk, causal, window, kv_len)
-        # bytes: each input read once, each output written once. dq reads q,
-        # k, v, o, dO and lse and writes dq and delta; its operations are the
-        # recompute (6 d per live pair) and the prologue's rowsum (2 d per row)
-        io = {"flash_attention_bwd_preprocess": (2 * o.numel() * esz + delta.numel() * 4,
-                                                 2 * d * B * H * Tq),
-              "flash_attention_bwd_dq": ((2 * q.numel() + k.numel() + v.numel() + o.numel()
-                                          + do.numel()) * esz + 2 * lse.numel() * 4,
-                                         6 * d * B * H * live + 2 * d * B * H * Tq),
-              "flash_attention_bwd_dkv": ((q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel())
-                                          * esz + 2 * lse.numel() * 4, 8 * d * B * H * live)}
+        masks = dict(causal=causal, window=window, kv_len=kv_len)
+        work = {"flash_attention_bwd_preprocess": cost.attention_bwd_preprocess(o),
+                "flash_attention_bwd_dq": cost.attention_bwd_dq(q, k, v, o, do, lse, **masks),
+                "flash_attention_bwd_dkv": cost.attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                                  **masks)}
         fused_ms = device_ms(lambda: flash_attention_bwd_dq(q, k, v, o, do, lse, **kw))
         calls = {"flash_attention_bwd_preprocess": (
                      fused_ms, lambda: attention_bwd_preprocess_ref(o, do),
@@ -3723,8 +3861,7 @@ def main() -> int:
         tol_of = {"flash_attention_bwd_preprocess": BWD_TOL["float32"],
                   "flash_attention_bwd_dq": tol, "flash_attention_bwd_dkv": tol}
         for name, (ms, plain_fn, library_fn) in calls.items():
-            nbytes, flops = io[name]
-            b_ms, b_by = bound(nbytes, flops, dname[dtype])
+            b_ms, b_by = bound(work[name], dname[dtype])
             library_ms = device_ms(library_fn) if library_fn else whole_bwd_ms
             r = dict(shape=[B, H, KV, Tq, Tk, d], strided=layout == "bthd",
                      dtype=dname[dtype], window=window, cap=cap, kv_len=kv_len,
@@ -3769,8 +3906,7 @@ def main() -> int:
         bwd_err = max(((a.float() - b.float()).abs().max()
                        / b.float().abs().max().clamp(min=1e-30)).item() for a, b in zip(gk, gr))
         check(bwd_err <= gtol, f"scan {label}: backward err {bwd_err} > {gtol}")
-        nbytes = 2 * deltas.numel() * deltas.element_size() + init.numel() * 4 + y.numel() * 4
-        b_ms, b_by = bound(nbytes, 2 * B * T, "float32")
+        b_ms, b_by = bound(cost.reverse_scan(deltas, decays, init), "float32")
         r = dict(shape=[B, T], dtype=dname[dtype], offset=off, label=label, max_abs_err=fwd_err,
                  bwd_err=bwd_err, tol=SCAN_TOL,
                  ms=device_ms(lambda: reverse_discounted_scan_p(deltas, decays, init)),
@@ -4074,14 +4210,15 @@ def main() -> int:
                   f"{name} was never launched on the train_families path")
 
     # -- 14. the mesh: a (1, 1) DeviceMesh of this card ---------------------------
-    launches["mesh"], mesh_out = mesh_phase(dev, counters, smi, per_forward)
+    launches["mesh"], mesh_out = mesh_phase(dev, counters, smi, per_forward, holds)
     lap("mesh")
     for name in SOURCES:
         if name != "flash_attention_bwd_preprocess":
             check(launches["mesh"][name] > 0, f"{name} was never launched on the mesh path")
 
     # -- 15. the mesh split over two gloo ranks of this card ----------------------
-    launches["mesh_split"], split_ranks, split_out = mesh_split_phase(smi, list(SOURCES))
+    launches["mesh_split"], split_ranks, split_out = mesh_split_phase(smi, list(SOURCES),
+                                                                      holds)
     lap("mesh_split")
 
     # -- 16. summary -------------------------------------------------------------

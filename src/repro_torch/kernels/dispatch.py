@@ -20,10 +20,11 @@ Outside a serving scope the flag is inert, so a learner's forward never
 picks it up.
 
 Shape-only evaluation (`abstract()`): inside that scope (per thread) meta
-tensors resolve to the ``meta`` tier and each op runs its plain version,
-which on meta tensors computes shapes and dtypes and nothing else; the
-dry-run (`launch/dryrun.py`) evaluates steps and counts their FLOPs so, as
-`jax.eval_shape` does. Outside it a meta tensor raises, as any device but
+tensors resolve to the ``meta`` tier and each op runs the kernel's wrapper
+as on the card, which on meta tensors allocates the kernel's outputs and
+launches nothing; the dry-run (`launch/dryrun.py`) evaluates steps and
+counts their work so, as `jax.eval_shape` does, and the count on meta is
+the count on the card. Outside it a meta tensor raises, as any device but
 CUDA and the CPU does.
 
 Every call is counted: ``stats()`` returns ``{"op|tier|detail": count}``.
@@ -47,11 +48,8 @@ from contextlib import contextmanager
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention as _flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.vtrace_scan.ops import reverse_discounted_scan as _reverse_scan
-from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
 
 INFER_MODES = ("bf16",)
 
@@ -138,10 +136,7 @@ def stats(reset: bool = False) -> dict:
 def rmsnorm(x, w, *, eps: float = 1e-6):
     """Fused RMSNorm over the last axis. x: (..., d); w: (d,), or (M, d)
     with x's leading axis M."""
-    tier = resolve(x)
-    note("rmsnorm", tier)
-    if tier == "meta":
-        return rmsnorm_ref(x, w, eps)
+    note("rmsnorm", resolve(x))
     return _rmsnorm(x, w, eps=eps)
 
 
@@ -152,11 +147,7 @@ def attention(q, k, v, *, scale, causal=True, window=0, cap=0.0):
     models/attention.chunked_attend); the kernel reads them through their
     strides. Returns (B, H, Tq, d) in q's dtype."""
     mixed = infer_mode() == "bf16"
-    tier = resolve(q)
-    note("attention", tier, ("bf16",) if mixed else ())
-    if tier == "meta":
-        return attention_fwd_ref(q, k, v, scale=scale, causal=causal, window=window,
-                                 cap=cap, mixed=mixed)[0]
+    note("attention", resolve(q), ("bf16",) if mixed else ())
     if not mixed:
         return _flash_attention(q, k, v, scale=scale, causal=causal,
                                 window=window, cap=cap)
@@ -170,10 +161,5 @@ def reverse_scan(deltas, decays, init=None):
     """y_t = delta_t + decay_t * y_{t+1}, y_T = init (zeros if None).
     (B, T) -> (B, T) fp32: the one primitive behind GAE, TD(lambda),
     discounted returns and the V-trace correction sum."""
-    tier = resolve(deltas)
-    note("reverse_scan", tier)
-    if tier == "meta":
-        if init is None:
-            init = deltas.new_zeros(deltas.shape[:1], dtype=torch.float32)
-        return reverse_discounted_scan_ref(deltas, decays, init)
+    note("reverse_scan", resolve(deltas))
     return _reverse_scan(deltas, decays, init)

@@ -18,13 +18,16 @@ have no counterpart. The kernels stage their tiles with 16-byte
 `cp.async`, so their tensors' base addresses and (batch, head, time)
 strides must be multiples of 16 bytes (`check_aligned`); the model's
 activations and every fresh allocation are. Each wrapper's `.launches`
-counts its kernel's launches and nothing else.
+counts its kernel's launches and nothing else. Meta tensors are checked
+as the card's would be, but for the kernels' 32-bit index limit (nothing
+is indexed), and get the kernels' outputs and no launch (shape-only
+evaluation); `cost.py` has each kernel's work.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_grads_ref,
     attention_bwd_preprocess_ref,
@@ -95,13 +98,14 @@ def _strides(*ts):
 
 
 def _check_kernel(q):
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention: unsupported device {q.device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash attention kernel takes {DTYPES}, got {q.dtype}")
     check_head_dim(q.shape[3])
 
 
+@cost.counted("flash_attention_fwd", cost.attention_fwd)
 def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                         kv_len=None, mixed=False):
     """q: (B, H, Tq, d); k, v: (B, KV, Tk, d). Returns (o (B, H, Tq, d) in
@@ -118,8 +122,10 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
     KV, Tk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, o)
     check_aligned(q, k, v, o)
+    if q.device.type == "meta":
+        return o, lse
+    strides = _strides(q, k, v, o)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -152,6 +158,7 @@ def _bwd_args(q, k, v, do, **stats):
     return [t.contiguous() for t in stats.values()]
 
 
+@cost.counted("flash_attention_bwd_dq", cost.attention_bwd_dq)
 def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
                            window=0, cap=0.0, kv_len=None):
     """(dq, delta): dq (B, H, Tq, d) in q's dtype and layout, accumulated in
@@ -171,8 +178,10 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
     KV, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, o, do, dq)
     check_aligned(q, k, v, o, do, dq)
+    if q.device.type == "meta":
+        return dq, delta
+    strides = _strides(q, k, v, o, do, dq)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -186,6 +195,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
     return dq, delta
 
 
+@cost.counted("flash_attention_bwd_dkv", cost.attention_bwd_dkv)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
                             window=0, cap=0.0, kv_len=None):
     """(dk, dv), each (B, KV, Tk, d) in k's dtype and layout: the sum over
@@ -197,8 +207,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
     B, H, Tq, d = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    strides = _strides(q, k, v, do, dk, dv)
     check_aligned(q, k, v, do, dk, dv)
+    if q.device.type == "meta":
+        return dk, dv
+    strides = _strides(q, k, v, do, dk, dv)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -218,12 +230,19 @@ for _fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale, causal=True, window=0,
                         cap=0.0, kv_len=None):
-    """(dq, dk, dv) of attention from the forward's o and lse: on CUDA the dq
-    kernel (which also writes delta) and then the dk/dv kernel, on one
-    stream; `attention_bwd_ref` on the CPU."""
+    """(dq, dk, dv) of attention from the forward's o and lse: the dq kernel
+    (which also writes delta) and then the dk/dv kernel, on one stream; on
+    the CPU their plain versions as one `attention_bwd_ref`, reported to
+    the counter as the two kernels' calls."""
     kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, **kw)[1:]
+        with cost.kernel_scope():
+            delta, dq, dk, dv = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        cost.report("flash_attention_bwd_dq", cost.attention_bwd_dq,
+                    (q, k, v, o, do, lse), kw, (dq, delta))
+        cost.report("flash_attention_bwd_dkv", cost.attention_bwd_dkv,
+                    (q, k, v, do, lse, delta), kw, (dk, dv))
+        return dq, dk, dv
     dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
     return (dq,) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
 

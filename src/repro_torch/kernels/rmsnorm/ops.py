@@ -5,6 +5,10 @@ Replaces `repro.kernels.rmsnorm.kernel.rmsnorm_p` (`_rmsnorm_kernel`); the
 kernel is `csrc/rmsnorm.cu`, whose header says what bounds it and how it is
 laid out. There is no padding to a block multiple: the kernel masks its own
 ragged edge. `rmsnorm.launches` counts kernel launches and nothing else.
+A meta tensor is checked as the card's would be, but for the kernel's
+32-bit index limit (nothing is indexed), and gets the kernel's output and
+weight copy and no launch (shape-only evaluation); `cost.rmsnorm` is the
+kernel's work.
 
 The backward is autograd through `rmsnorm_ref` on the saved x and w, as
 `repro/kernels/rmsnorm/ops.py:36-39` differentiates its reference: the
@@ -14,12 +18,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+@cost.counted("rmsnorm", cost.rmsnorm)
 def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     d = x.shape[-1]
     if w.dim() not in (1, 2) or w.shape[-1] != d:
@@ -31,18 +36,20 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
         raise ValueError(f"rmsnorm: x on {x.device}, weight on {w.device}")
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     if x.dtype not in DTYPES:
         raise TypeError(f"rmsnorm kernel takes {DTYPES}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("rmsnorm kernel needs a contiguous x")
-    rows = x.numel() // d if d else 0
+    w = w.float().contiguous()
+    y = torch.empty_like(x)
+    if x.device.type == "meta":
+        return y
     if x.numel() >= 2 ** 31:
         raise ValueError("rmsnorm kernel indexes with 32-bit ints")
-    w = w.float().contiguous()
+    rows = x.numel() // d if d else 0
     rows_per_weight = rows // w.shape[0] if w.dim() == 2 else max(rows, 1)
-    y = torch.empty_like(x)
     lib = _build.library()
     err = lib.rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
                           rows_per_weight, eps, int(x.dtype == torch.bfloat16),

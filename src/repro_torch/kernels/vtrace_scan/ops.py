@@ -7,7 +7,10 @@ what bounds it and how it is laid out. Unlike `repro`'s `ops.py`, nothing
 is padded to a batch block: the kernel masks its own ragged edges and
 takes any alignment (16-byte loads where it can, scalar ones elsewhere).
 `reverse_discounted_scan_p.launches` counts kernel launches and nothing
-else.
+else. A meta tensor is checked as the card's would be, but for the
+kernel's 32-bit index limit (nothing is indexed), and gets the kernel's
+output and input copies and no launch (shape-only evaluation);
+`cost.reverse_scan` is the kernel's work.
 
 `reverse_discounted_scan` is differentiable with the closed-form transpose
 of `repro`'s `ops._closed_form_bwd`. The recurrence
@@ -26,12 +29,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+@cost.counted("reverse_discounted_scan_p", cost.reverse_scan)
 def reverse_discounted_scan_p(deltas, decays, init):
     """deltas, decays: (B, T) fp32 or bf16; init: (B,). Returns y: (B, T)
     fp32 with y_t = delta_t + decay_t * y_{t+1} and y_T = init."""
@@ -42,17 +46,19 @@ def reverse_discounted_scan_p(deltas, decays, init):
         raise ValueError("reverse scan: inputs on different devices")
     if deltas.device.type == "cpu":
         return reverse_discounted_scan_ref(deltas, decays, init)
-    if deltas.device.type != "cuda":
+    if deltas.device.type not in ("cuda", "meta"):
         raise ValueError(f"reverse scan: unsupported device {deltas.device}")
     if deltas.dtype != decays.dtype or deltas.dtype not in DTYPES:
         raise TypeError(f"reverse scan kernel takes deltas and decays of one dtype in "
                         f"{DTYPES}, got {deltas.dtype} and {decays.dtype}")
-    if deltas.numel() >= 2 ** 31:
-        raise ValueError("reverse scan kernel indexes with 32-bit ints")
     B, T = deltas.shape
     deltas, decays = deltas.contiguous(), decays.contiguous()
     init = init.float().contiguous()
     y = torch.empty((B, T), dtype=torch.float32, device=deltas.device)
+    if deltas.device.type == "meta":
+        return y
+    if deltas.numel() >= 2 ** 31:
+        raise ValueError("reverse scan kernel indexes with 32-bit ints")
     lib = _build.library()
     err = lib.reverse_scan(deltas.data_ptr(), decays.data_ptr(), init.data_ptr(),
                            y.data_ptr(), B, T, int(deltas.dtype == torch.bfloat16),

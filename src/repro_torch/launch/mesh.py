@@ -9,10 +9,18 @@ input specs and the dry-run read.
 (world, 1) over ('data', 'model') on the default process group, one rank
 per device (NCCL on CUDA, gloo on the CPU). With no process group it
 initialises a world of one over an in-process store, so one card is a
-(1, 1) mesh. Both are functions: importing this module touches no device
-and no process group.
+(1, 1) mesh.
+
+`make_counting_mesh` is a production-sized mesh with no devices behind
+it: a `DeviceMesh` over a fake process group of prod(shape) ranks, seen
+from rank 0, on which the dry-run runs the real sharded step on meta
+tensors and counts what rank 0 computes and sends. All three are
+functions: importing this module touches no device and no process group.
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 
@@ -64,6 +72,32 @@ def close_local_mesh() -> None:
     if _OWNS_GROUP and dist.is_initialized():
         dist.destroy_process_group()
     _OWNS_GROUP = False
+
+
+@contextlib.contextmanager
+def make_counting_mesh(shape):
+    """A DeviceMesh of `shape` over the production meshes' axis names
+    ('data', 'model', with 'pod' before them for three dimensions) on a
+    fake process group of prod(shape) ranks, seen from rank 0: collectives
+    run and move nothing. For shape-only steps (meta
+    tensors) and their counts; rank 0 holds the largest chunk of an uneven
+    shard. Raises if a process group is up, so it never counts against a
+    real one, and destroys its group on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = tuple(shape)
+    axes = ("pod", "data", "model")[-len(shape):]
+    if dist.is_initialized():
+        raise RuntimeError("make_counting_mesh: a process group is up; the counting "
+                           "mesh takes a fake one of its own")
+    world = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield DeviceMesh("cpu", torch.arange(world).reshape(shape), mesh_dim_names=axes)
+    finally:
+        dist.destroy_process_group()
 
 
 # NVIDIA H100 SXM5 (80 GB HBM3) constants for the roofline, per card, from

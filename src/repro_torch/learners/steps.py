@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.actors.policy import make_obs_policy
 from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import cost
 from repro_torch.models import forward_train
 from repro_torch.models import moe as MOE
 from repro_torch.rl.ppo import PPOConfig, ppo_loss
@@ -81,6 +82,7 @@ def _value_and_grad(loss_fn, params, mesh=None, cfg=None):
 
 def _apply(optimizer, params, opt_state, loss_fn, mesh=None, cfg=None):
     lv, metrics, grads = _value_and_grad(loss_fn, params, mesh, cfg)
+    cost.phase("update")
     with torch.no_grad():
         params, opt_state, om = optimizer.update(grads, opt_state, params)
     return params, opt_state, {**metrics, **om, "loss": lv}

@@ -48,7 +48,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.utils import resolve_device, tree_leaves, tree_map
+from repro_torch.utils import resolve_device, tree_map
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 GROUPS = ("dense_prefix", "blocks")        # the order the stacks run in
@@ -298,9 +298,16 @@ def _index(tree, r, grouped):
     return tree[:, r] if grouped else tree[r]
 
 
-def _units(tree, grouped=False):
-    """How many repeat units a stacked tree holds."""
-    return tree_leaves(tree)[0].shape[1 if grouped else 0]
+def _unbind(tree, grouped):
+    """Every repeat unit of a stacked tree (`_index` of each r), as views
+    whose backward is one stack of their grads: indexing each unit in a
+    differentiated forward would give each its own zero-filled,
+    stack-sized grad, summed unit by unit (bytes growing as units²)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, grouped) for k, v in tree.items()}
+        return [{k: v[r] for k, v in parts.items()}
+                for r in range(len(next(iter(parts.values()))))]
+    return list(torch.unbind(tree, 1 if grouped else 0))
 
 
 def forward_train(params, cfg, batch, remat=False):
@@ -329,8 +336,8 @@ def forward_train(params, cfg, batch, remat=False):
     for group in GROUPS:
         if group not in params:
             continue
-        for r in range(_units(params[group], grouped)):
-            def fn(x, unit=_index(params[group], r, grouped), group=group):
+        for unit in _unbind(params[group], grouped):
+            def fn(x, unit=unit, group=group):
                 with SH.restored(scope):
                     unit = SH.materialize(unit, (group,), 1 if grouped else 0)
                     return _apply_unit_full(cfg, unit, x, positions)
@@ -376,7 +383,9 @@ def _stacked_cache(cfg, batch, cache_len, dtype, prefilled, device, reps):
     axis (the layout `jax.vmap` gives `repro`'s). Under a mesh scope the
     KV caches hold what this rank computes (`attention.init_kv_cache`)."""
     one = _init_unit_cache(cfg, batch, cache_len, dtype, prefilled, device)
-    return tree_map(lambda a: a.expand(reps, *a.shape).contiguous(), one)
+    # a copy at every depth (`contiguous` keeps one unit's expand a view),
+    # so a state's allocations grow by the same bytes with each unit
+    return tree_map(lambda a: a.expand(reps, *a.shape).clone(), one)
 
 
 def _group_sizes(cfg):
@@ -436,8 +445,9 @@ def decode_step(params, cfg, tokens, state, *, window=0, uniform=False):
             io = {key: ({**_index(c, r, False), "length": length} if isinstance(c, dict)
                         else c[r]) for key, c in stacked.items()}
             unit = SH.materialize(_index(params[group], r, False), (group,), 0)
-            x, _ = _apply_unit_step(cfg, unit, x, io, window_override=window,
-                                    uniform=uniform)
+            x = _apply_unit_step(cfg, unit, x, io, window_override=window,
+                                 uniform=uniform)[0]
+            del unit                  # one unit's gathered weights alive at a time
             for key, c in stacked.items():
                 if not isinstance(c, dict):
                     c[r].copy_(io[key])
@@ -489,7 +499,8 @@ def prefill(params, cfg, batch, *, sliding=False, reserve=64):
                 return y
             io = {}
             unit = SH.materialize(_index(params[group], r, False), (group,), 0)
-            x, _ = _apply_unit(cfg, unit, x, attend, io)
+            x = _apply_unit(cfg, unit, x, attend, io)[0]
+            del unit                  # one unit's gathered weights alive at a time
             for key, t in io.items():
                 stacked[key][r].copy_(t)
         for c in stacked.values():

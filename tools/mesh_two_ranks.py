@@ -43,6 +43,11 @@ NCCL refuses two ranks on one device, so this tries gloo on CUDA tensors:
      case runs once to warm up, then again, held and timed (with its
      collectives' share); it reports each rank's kernel launches and
      whether a plain version ran. The single rank runs warm, alone.
+     rwkv6-3b's held prefill runs under the per-rank counter
+     (`launch.counters.Counter`): each rank's FLOPs and collectives by
+     kind are reported (`counted_prefill`), for `chip_smoke.py` to hold
+     against the dry-run's count, and each rank's launches must equal the
+     warm-up's, which ran without it.
 
     python3 tools/mesh_two_ranks.py [--probe-only | --split]
 
@@ -73,6 +78,7 @@ T = 4096
 SERVE_ARCHS = ("command-r-35b", "mistral-large-123b")
 SERVE_LAYERS, SERVE_B, SERVE_T, SERVE_STEPS = 2, 4, 256, 4
 SPLIT_ARCHS = ("rwkv6-3b", "hymba-1.5b")
+COUNTED_ARCH = "rwkv6-3b"         # its held prefill runs under the per-rank counter
 MOE_ARCH, MOE_B, MOE_T = "qwen3-moe-235b-a22b", 4, 1024
 SPLIT_CASES = tuple(f"split_prefill_and_decode:{a}" for a in SPLIT_ARCHS) + (
     f"split_moe_unit:{MOE_ARCH}",)
@@ -284,23 +290,40 @@ def state_bytes(state) -> dict:
     return out
 
 
-def serve_steps(dev, arch, mesh):
+def serve_cfg(arch):
+    """`arch` at full width, SERVE_LAYERS layers, fp32 compute."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), num_layers=SERVE_LAYERS, compute_dtype="float32")
+
+
+def serve_shapes():
+    """Register the prefill and decode input shapes the factory's fns take."""
+    from repro_torch.configs import INPUT_SHAPES, InputShape
+    INPUT_SHAPES["two_ranks_prefill"] = InputShape("two_ranks_prefill", SERVE_T, SERVE_B,
+                                                   "prefill")
+    # the decode state's specs are those of the prefill's cache (64 slots more)
+    INPUT_SHAPES["two_ranks_decode"] = InputShape("two_ranks_decode", SERVE_T + 64, SERVE_B,
+                                                  "decode")
+
+
+def serve_steps(dev, arch, mesh, counter=None):
     """(outputs, {kind: state bytes on this rank}, ms) of `arch`'s prefill
     and decode at full width, SERVE_LAYERS layers, fp32 compute: through
     the dry-run factory's fns on `mesh`, or the unsharded `prefill` and
     `decode_step` (None). outputs: the last position's logits and values,
     each step's, and every leaf of the final state, as full tensors; ms:
     the prefill and the steps on the host clock, synchronised (not the
-    params' init nor the outputs' gather)."""
+    params' init nor the outputs' gather). `counter` (a
+    `launch.counters.Counter`, with a mesh) counts the sharded prefill
+    call alone."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import INPUT_SHAPES, InputShape, get_arch
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.steps import make_dryrun_step
     from repro_torch.models import decode_step, init_params, prefill
 
-    cfg = dataclasses.replace(get_arch(arch), num_layers=SERVE_LAYERS, compute_dtype="float32")
+    cfg = serve_cfg(arch)
     params = init_params(torch.Generator(device=dev).manual_seed(28), cfg)
     toks = torch.from_numpy(np.random.default_rng(29).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_T + SERVE_STEPS))).to(dev)
@@ -316,18 +339,16 @@ def serve_steps(dev, arch, mesh):
             return res, st
         ms, (res, st) = timed(run)
         return res + [t for _, t in SH.leaves_with_path(st)], state_bytes(st), ms
-    INPUT_SHAPES["two_ranks_prefill"] = InputShape("two_ranks_prefill", SERVE_T, SERVE_B,
-                                                   "prefill")
-    INPUT_SHAPES["two_ranks_decode"] = InputShape("two_ranks_decode", SERVE_T + 64, SERVE_B,
-                                                  "decode")
+    serve_shapes()
     pre = make_dryrun_step(cfg, "two_ranks_prefill", mesh)
     dec = make_dryrun_step(cfg, "two_ranks_decode", mesh)
     pd = from_local(params, pre["in_shardings"][0], mesh)
     del params
 
     def run():
-        lg, v, st = pre["fn"](pd, from_local({"tokens": toks[:, :SERVE_T]},
-                                             pre["in_shardings"][1], mesh))
+        batch = from_local({"tokens": toks[:, :SERVE_T]}, pre["in_shardings"][1], mesh)
+        with counter or contextlib.nullcontext():
+            lg, v, st = pre["fn"](pd, batch)
         res = [lg, v]
         for i in steps:
             dl, dv, st = dec["fn"](pd, from_local(toks[:, i:i + 1], dec["in_shardings"][1],
@@ -550,6 +571,7 @@ def split_main(rank, world, store):
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.counters import COLLECTIVES, Counter
     from repro_torch.launch.mesh import make_local_mesh
 
     dev = torch.device("cuda", 0)
@@ -577,13 +599,26 @@ def split_main(rank, world, store):
         held = []
         for arch in SPLIT_ARCHS:
             with torch.no_grad():
+                zero_counts()
                 first = serve_steps(dev, arch, mesh)[2]      # warm-up: first calls, not held
+                uncounted = read_counts()[0]
                 torch.cuda.empty_cache()
+                counter = Counter() if arch == COUNTED_ARCH else None
                 zero_counts()
                 with collectives_timed() as coll:
-                    got, nbytes, ms1 = serve_steps(dev, arch, mesh)
+                    got, nbytes, ms1 = serve_steps(dev, arch, mesh, counter)
                 counts, plain = read_counts()
                 launches = each_rank(counts + [plain], dev, mesh)
+                # the counter changes no launch
+                same = each_rank([counts == uncounted], dev, mesh)
+                counted = None
+                if counter:
+                    res = counter.result()
+                    keys = ["total"] + [f"{p}{k}" for p in ("", "n_") for k in COLLECTIVES]
+                    rows = each_rank([res["flops"]] + [res["collectives"][k] for k in keys],
+                                     dev, mesh)
+                    counted = [{"flops": r[0], "collectives": dict(zip(keys, r[1:]))}
+                               for r in rows]
                 kinds = sorted(nbytes)
                 sizes = each_rank([nbytes[k] for k in kinds], dev, mesh)
                 torch.cuda.empty_cache()
@@ -596,7 +631,8 @@ def split_main(rank, world, store):
                     errs = {"outputs": max(rel_err(a, b) for a, b in floats[:n_out]),
                             "state": max(rel_err(a, b) for a, b in floats[n_out:])}
                     no_plain = not any(r[-1] for r in launches)
-                    ok = (len(got) == len(want) and ints_equal and no_plain
+                    same = all(r[0] for r in same)
+                    ok = (len(got) == len(want) and ints_equal and no_plain and same
                           and all(e <= TOL for e in errs.values()))
                     held.append(ok)
                     print(json.dumps({
@@ -608,6 +644,8 @@ def split_main(rank, world, store):
                                         "single_rank": single},
                         "launches": {"each_rank": [dict(zip(KERNELS, r)) for r in launches]},
                         "plain_versions_ran": not no_plain,
+                        "launches_as_uncounted": same,
+                        "counted_prefill": counted and {"each_rank": counted},
                         "ms": {"two_ranks": ms1, "two_ranks_first": first,
                                "two_ranks_collectives": coll["ms"], "one_rank": ms0},
                         "collective_calls": coll["calls"], "ok": ok}), flush=True)
