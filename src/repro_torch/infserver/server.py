@@ -20,7 +20,18 @@ Design, as in `repro`:
   params; swaps are hash-gated (a refresh carrying the content hash the
   route already hosts is a no-op) and a refresh whose pool version is older
   than the hosted one is dropped.
-* **Telemetry** — per-batch latency and occupancy feed `stats()`.
+* **Telemetry** — per-batch latency, occupancy and queue wait feed
+  `stats()`. A request's queue wait runs from its `submit` to the start
+  of the flush that serves it: `mean_queue_wait_ms` (also in
+  `telemetry()`) and `max_queue_wait_ms` are an operator's signal that
+  requests queue behind flushes, that is, that the replica takes more
+  load than it serves; a closed loop of actors that fill each flush
+  keeps them near zero. With tracing on (`utils/trace.py`), each flush
+  is a span `infserver.flush#<n>` (n = `batches_run` at its start) over
+  `infserver.pad`, `.h2d`, `.forward`, `.d2h` and `.scatter`. The
+  latency a flush adds to `mean_batch_latency_ms` ends as its results
+  are scattered: the queue-wait sums and the expiry of dead owners'
+  results come after it.
 
 The forwards run inside `dispatch.serving()`, so `REPRO_KERNELS_INFER=bf16`
 applies to them and never to a learner's forward. Each flush uploads one
@@ -57,7 +68,7 @@ from repro_torch.actors.policy import make_obs_policy
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import dispatch
 from repro_torch.rl.distributions import categorical_logp, categorical_sample
-from repro_torch.utils import resolve_device, tree_map, tree_stack
+from repro_torch.utils import resolve_device, trace, tree_map, tree_stack
 
 _DEFAULT = "__default__"
 
@@ -128,8 +139,8 @@ class InfServer:
         self.swap_stale_drops = 0    # refreshes dropped as version downgrades
         if params is not None:
             self.register_model(_DEFAULT, params)
-        # request queue
-        self._pending: List[Tuple[int, Hashable, np.ndarray]] = []
+        # request queue: (ticket id, model, obs, submit time)
+        self._pending: List[Tuple[int, Hashable, np.ndarray, float]] = []
         self._pending_rows = 0
         self._results: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
         # tid -> batches_run at resolution; drives dead-owner expiry
@@ -143,6 +154,8 @@ class InfServer:
         self.rows_served = 0
         self.rows_padded = 0
         self._latency_sum = 0.0
+        self._queue_wait_sum = 0.0       # over served requests: submit -> flush start
+        self._queue_wait_max = 0.0
         self.last_batch_latency_s = 0.0
         self.last_batch_models = 0
 
@@ -257,7 +270,7 @@ class InfServer:
         """Drop a route. Returns False (and keeps the route) when requests
         for it are still queued."""
         with self._lock:
-            if any(k == key for _, k, _ in self._pending):
+            if any(k == key for _, k, *_ in self._pending):
                 return False
             self._models.pop(key, None)
             self._versions.pop(key, None)
@@ -281,7 +294,7 @@ class InfServer:
                 raise KeyError(f"unknown model route {key!r}")
             ticket = Ticket(self._next_id, key, obs.shape[0], self)
             self._next_id += 1
-            self._pending.append((ticket.tid, key, obs))
+            self._pending.append((ticket.tid, key, obs, time.perf_counter()))
             self._pending_rows += obs.shape[0]
             if self._pending_rows >= self.max_batch:
                 self.flush()
@@ -299,23 +312,34 @@ class InfServer:
                 return
             t0 = time.perf_counter()
             pending, self._pending, self._pending_rows = self._pending, [], 0
-
-            groups: Dict[Hashable, List[Tuple[int, np.ndarray]]] = {}
-            for tid, key, obs in pending:
-                groups.setdefault(key, []).append((tid, obs))
-
-            with dispatch.serving(), torch.inference_mode():
-                if len(groups) == 1:
-                    (key, items), = groups.items()
-                    self._flush_single(key, items)
-                else:
-                    self._flush_grouped(groups)
-
+            with trace.span(f"infserver.flush#{self.batches_run}"), dispatch.serving(), \
+                    torch.inference_mode():
+                with trace.span("infserver.pad"):
+                    groups: Dict[Hashable, List[Tuple[int, np.ndarray]]] = {}
+                    for tid, key, obs, _ in pending:
+                        groups.setdefault(key, []).append((tid, obs))
+                    keys = sorted(groups, key=repr)
+                    obs, rows, padded = self._batch([groups[k] for k in keys])
+                params = (self._models[keys[0]] if len(keys) == 1
+                          else self._stacked_params(keys))
+                out = self._forward(params, obs, grouped=len(keys) > 1)
+                with trace.span("infserver.scatter"):
+                    for m, k in enumerate(keys):
+                        self._scatter(groups[k], *(out if len(keys) == 1
+                                                   else (o[m] for o in out)))
+            self.rows_served += rows
+            self.rows_padded += padded
             self.requests_served += len(pending)
             self.batches_run += 1
             self.last_batch_models = len(groups)
             self.last_batch_latency_s = time.perf_counter() - t0
             self._latency_sum += self.last_batch_latency_s
+            waits = [t0 - t for *_, t in pending]
+            self._queue_wait_sum += sum(waits)
+            self._queue_wait_max = max(self._queue_wait_max, max(waits))
+            rec = trace.active()
+            if rec is not None:
+                rec.queue_waits_s += waits
             # dead-owner expiry; strict >: a result born in THIS flush must
             # survive the full TTL window before it can be reclaimed
             expired = [tid for tid, born in self._result_born.items()
@@ -325,59 +349,45 @@ class InfServer:
                 self._result_born.pop(tid, None)
                 self.tickets_expired += 1
 
+    def _batch(self, parts):
+        """The flush's observations, each model's rows padded to one
+        bucket: (S, L) for one model, (M, S, L) for several; and the real
+        and padded row counts."""
+        per_model = [np.concatenate([o for _, o in items], axis=0) for items in parts]
+        S = self._pad_rows(max(m.shape[0] for m in per_model))
+        obs = np.zeros((len(parts), S) + per_model[0].shape[1:], per_model[0].dtype)
+        for m, sub in enumerate(per_model):
+            obs[m, :sub.shape[0]] = sub
+        return (obs[0] if len(parts) == 1 else obs), sum(m.shape[0] for m in per_model), \
+            len(parts) * S
+
     def _forward(self, params, obs: np.ndarray, grouped: bool = False):
         """Upload the padded batch, act, and copy (a, logp, v) back to the
         host as one block (actions ride as fp32, exact below 2**24)."""
-        tokens = self._place_obs(obs, grouped)
-        if self.mesh is None:
-            a, logp, v = self.policy.act(params, self.gen, tokens)
-        else:
-            # this rank's rows over its param shards; the logits and values
-            # of every data rank, then one draw over the batch
-            row = 1 if grouped else 0
-            axes = [a for a in SH.data_axes(self.mesh)
-                    if tokens.placements[self.mesh.mesh_dim_names.index(a)].is_shard()]
-            local, specs = SH.local_params(params, self.mesh)
-            with SH.data_parallel(self.mesh, axes), \
-                    SH.param_scope(self.mesh, specs, self.cfg):
-                lg, v = self.policy.logits_values(local, SH.local_rows(tokens))
-            lg, v = (SH.all_gather(t, row, self.mesh, axes) for t in (lg, v))
-            a = categorical_sample(self.gen, lg)
-            logp = categorical_logp(lg, a)
-        out = torch.stack([a.float(), logp.float(), v.float()], dim=-1).cpu().numpy()
+        with trace.span("infserver.h2d"):
+            tokens = self._place_obs(obs, grouped)
+        with trace.span("infserver.forward"):
+            a, logp, v = self._act(params, tokens, grouped)
+        with trace.span("infserver.d2h"):
+            out = torch.stack([a.float(), logp.float(), v.float()], dim=-1).cpu().numpy()
         return out[..., 0].astype(np.int32), out[..., 1], out[..., 2]
 
-    def _flush_single(self, key, items) -> None:
-        tickets = [t for t, _ in items]
-        sizes = [o.shape[0] for _, o in items]
-        rows = sum(sizes)
-        big = np.concatenate([o for _, o in items], axis=0)
-        pad = self._pad_rows(rows) - rows
-        if pad:
-            big = np.concatenate([big, np.zeros((pad,) + big.shape[1:],
-                                                big.dtype)], axis=0)
-        a, logp, v = self._forward(self._models[key], big)
-        self._scatter(tickets, sizes, a, logp, v)
-        self.rows_served += rows
-        self.rows_padded += rows + pad
-
-    def _flush_grouped(self, groups) -> None:
-        keys = sorted(groups, key=repr)
-        per_model = [np.concatenate([o for _, o in groups[k]], axis=0)
-                     for k in keys]
-        rows = [m.shape[0] for m in per_model]
-        S = self._pad_rows(max(rows))
-        obs_mat = np.zeros((len(keys), S) + per_model[0].shape[1:],
-                           per_model[0].dtype)
-        for m, sub in enumerate(per_model):
-            obs_mat[m, :sub.shape[0]] = sub
-        a, logp, v = self._forward(self._stacked_params(keys), obs_mat, grouped=True)
-        for m, k in enumerate(keys):
-            tickets = [t for t, _ in groups[k]]
-            sizes = [o.shape[0] for _, o in groups[k]]
-            self._scatter(tickets, sizes, a[m], logp[m], v[m])
-        self.rows_served += sum(rows)
-        self.rows_padded += len(keys) * S
+    def _act(self, params, tokens, grouped: bool):
+        """(action, logp, value) of every row, on the device."""
+        if self.mesh is None:
+            return self.policy.act(params, self.gen, tokens)
+        # this rank's rows over its param shards; the logits and values
+        # of every data rank, then one draw over the batch
+        row = 1 if grouped else 0
+        axes = [a for a in SH.data_axes(self.mesh)
+                if tokens.placements[self.mesh.mesh_dim_names.index(a)].is_shard()]
+        local, specs = SH.local_params(params, self.mesh)
+        with SH.data_parallel(self.mesh, axes), \
+                SH.param_scope(self.mesh, specs, self.cfg):
+            lg, v = self.policy.logits_values(local, SH.local_rows(tokens))
+        lg, v = (SH.all_gather(t, row, self.mesh, axes) for t in (lg, v))
+        a = categorical_sample(self.gen, lg)
+        return a, categorical_logp(lg, a), v
 
     def _stacked_params(self, keys) -> Any:
         """(M, ...) stacked params for the model set, cached until any
@@ -402,11 +412,12 @@ class InfServer:
             lambda name, t: DTensor.from_local(t, self.mesh, SH.placements(flat[name], self.mesh),
                                                run_check=False), stacked)
 
-    def _scatter(self, tickets, sizes, a, logp, v) -> None:
+    def _scatter(self, items, a, logp, v) -> None:
+        """Each (ticket id, obs) of `items` gets its rows of the results."""
         ofs = 0
-        for t, n in zip(tickets, sizes):
-            self._results[t] = (a[ofs:ofs + n], logp[ofs:ofs + n],
-                                v[ofs:ofs + n])
+        for t, o in items:
+            n = o.shape[0]
+            self._results[t] = (a[ofs:ofs + n], logp[ofs:ofs + n], v[ofs:ofs + n])
             self._result_born[t] = self.batches_run
             ofs += n
 
@@ -428,10 +439,10 @@ class InfServer:
         with self._lock:
             self._results.pop(tid, None)
             self._result_born.pop(tid, None)
-            kept = [(t, k, o) for t, k, o in self._pending if t != tid]
+            kept = [p for p in self._pending if p[0] != tid]
             if len(kept) != len(self._pending):
-                self._pending_rows -= sum(o.shape[0] for t, k, o
-                                          in self._pending if t == tid)
+                self._pending_rows -= sum(p[2].shape[0] for p in self._pending
+                                          if p[0] == tid)
                 self._pending = kept
 
     # -- telemetry ------------------------------------------------------------
@@ -446,6 +457,7 @@ class InfServer:
             "occupancy": self.rows_served / max(self.rows_padded, 1),
             "mean_batch_latency_ms": 1e3 * self._latency_sum / batches,
             "last_batch_latency_ms": 1e3 * self.last_batch_latency_s,
+            "mean_queue_wait_ms": 1e3 * self._queue_wait_sum / max(self.requests_served, 1),
             "models_hosted": len(self._models),
         }
 
@@ -459,6 +471,8 @@ class InfServer:
             "occupancy": self.rows_served / max(self.rows_padded, 1),
             "mean_batch_latency_ms": 1e3 * self._latency_sum / batches,
             "last_batch_latency_ms": 1e3 * self.last_batch_latency_s,
+            "mean_queue_wait_ms": 1e3 * self._queue_wait_sum / max(self.requests_served, 1),
+            "max_queue_wait_ms": 1e3 * self._queue_wait_max,
             "last_batch_models": self.last_batch_models,
             "swaps": self.swaps,
             "swap_noops": self.swap_noops,

@@ -34,6 +34,10 @@ updates the DTensors. A sharded step needs `remat=True`: that is what
 frees a unit's gathered weights between its forward and its backward.
 `train_step.value_and_grad(params, batch)` gives (loss, metrics, grads)
 without the update.
+
+Traced (`utils/trace.py`), a step is the phases `learner.forward` (the
+loss), `learner.backward` (the gradient, the remat recompute included,
+through the grads' reduction over a mesh), then the optimizer's.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from repro_torch.models import forward_train
 from repro_torch.models import moe as MOE
 from repro_torch.rl.ppo import PPOConfig, ppo_loss
 from repro_torch.rl.vtrace_loss import VTraceConfig, vtrace_loss
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import trace, tree_leaves, tree_map
 
 _TRAJ_FIELDS = ("actions", "behavior_logp", "behavior_values", "rewards",
                 "bootstrap_value")
@@ -70,13 +74,17 @@ def _value_and_grad(loss_fn, params, mesh=None, cfg=None):
         local, specs = SH.local_params(params, mesh)
         scope = SH.param_scope(mesh, specs, cfg, ep=MOE.expert_parallel())
     p = tree_map(lambda t: t.detach().requires_grad_(True), local)
-    with torch.enable_grad(), scope:
-        lv, metrics = loss_fn(p)
-        seed = lv if mesh is None else lv / mesh.size()
-        grads = iter(torch.autograd.grad(seed, tree_leaves(p), materialize_grads=True))
-    grads = tree_map(lambda _: next(grads), p)
-    if mesh is not None:
-        grads = SH.reduce_grads(grads, params, mesh)
+    leaves = tree_leaves(p)
+    with contextlib.ExitStack() as backward:
+        with torch.enable_grad(), scope:
+            with trace.phase("learner.forward", leaves[0]):
+                lv, metrics = loss_fn(p)
+            backward.enter_context(trace.phase("learner.backward", leaves[0]))
+            seed = lv if mesh is None else lv / mesh.size()
+            grads = iter(torch.autograd.grad(seed, leaves, materialize_grads=True))
+        grads = tree_map(lambda _: next(grads), p)
+        if mesh is not None:
+            grads = SH.reduce_grads(grads, params, mesh)
     return lv.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 

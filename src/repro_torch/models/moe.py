@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
+from repro_torch.utils import trace
 
 PAD_ROWS = 16   # drop-bucket rows, as `repro` sizes its buffer
 
@@ -91,7 +92,9 @@ def moe_apply(p, cfg, x):
     `repro` casts them. Inside a data-parallel scope the mesh path runs
     (`_moe_ranked`) over the experts this rank holds, expert-parallel when
     the toggle is on and the experts divide over 'model', as `repro`
-    decides."""
+    decides. Traced (`utils/trace.py`), the single-device path is three
+    phases: `moe.route` (router, top-k, the scatter into the expert
+    buffers), `moe.experts` (the expert products) and `moe.combine`."""
     mesh = SH.dp_mesh()
     if mesh is not None:
         M = SH.mesh_sizes(mesh).get("model", 1)
@@ -104,29 +107,32 @@ def moe_apply(p, cfg, x):
     E, k = e.num_experts, e.experts_per_token
     capacity = max(int(N * k * e.capacity_factor / E), k)
 
-    gates = torch.softmax(xf.float() @ p["router"]["w"].float(), dim=-1)   # (N, E)
-    slot, weight, keep, counts = route_topk(gates, k, capacity)
+    with trace.phase("moe.route", x):
+        gates = torch.softmax(xf.float() @ p["router"]["w"].float(), dim=-1)   # (N, E)
+        slot, weight, keep, counts = route_topk(gates, k, capacity)
 
-    # scatter tokens into the expert buffers; the drop bucket is row E*C
-    buf = x.new_zeros((E * capacity + PAD_ROWS, d))
-    buf[slot.reshape(-1)] = xf[torch.arange(N * k, device=x.device) // k]
-    expert_in = buf[:E * capacity].view(E, capacity, d)
+        # scatter tokens into the expert buffers; the drop bucket is row E*C
+        buf = x.new_zeros((E * capacity + PAD_ROWS, d))
+        buf[slot.reshape(-1)] = xf[torch.arange(N * k, device=x.device) // k]
+        expert_in = buf[:E * capacity].view(E, capacity, d)
 
-    a = L.act_fn(cfg.activation)
-    h = torch.bmm(expert_in, p["up"].to(x.dtype))
-    g = torch.bmm(expert_in, p["gate"].to(x.dtype))
-    out = torch.bmm(a(g) * h, p["down"].to(x.dtype))
+    with trace.phase("moe.experts", x):
+        a = L.act_fn(cfg.activation)
+        h = torch.bmm(expert_in, p["up"].to(x.dtype))
+        g = torch.bmm(expert_in, p["gate"].to(x.dtype))
+        out = torch.bmm(a(g) * h, p["down"].to(x.dtype))
 
-    out_flat = torch.cat([out.reshape(E * capacity, d), x.new_zeros((PAD_ROWS, d))])
-    w = (weight * keep).to(x.dtype)
-    y = torch.einsum("nk,nkd->nd", w, out_flat[slot])
+    with trace.phase("moe.combine", x):
+        out_flat = torch.cat([out.reshape(E * capacity, d), x.new_zeros((PAD_ROWS, d))])
+        w = (weight * keep).to(x.dtype)
+        y = torch.einsum("nk,nkd->nd", w, out_flat[slot])
 
-    if "shared" in p:
-        y = y + L.mlp(p["shared"], xf, cfg.activation)
+        if "shared" in p:
+            y = y + L.mlp(p["shared"], xf, cfg.activation)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * p_e, f before capacity
-    f = counts.float() / (N * k)
-    aux = e.router_aux_coef * E * (f * gates.mean(0)).sum()
+        # load-balance aux loss (Switch): E * sum_e f_e * p_e, f before capacity
+        f = counts.float() / (N * k)
+        aux = e.router_aux_coef * E * (f * gates.mean(0)).sum()
     return y.reshape(B, T, d), aux
 
 

@@ -48,7 +48,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, trace, tree_map
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 GROUPS = ("dense_prefix", "blocks")        # the order the stacks run in
@@ -325,7 +325,8 @@ def forward_train(params, cfg, batch, remat=False):
     Under a mesh scope (`distributed/sharding.param_scope`) each unit
     gathers its weights inside its own (checkpointed) function, so the
     gathered copy lives for that unit's forward, and with remat for its
-    recompute in the backward; the heads are checkpointed too."""
+    recompute in the backward; the heads are checkpointed too. Traced
+    (`utils/trace.py`), the heads are the phase `model.head`."""
     _check_family(cfg)
     scope = SH.capture()
     x, positions = embed_inputs(params, cfg, batch)
@@ -348,8 +349,9 @@ def forward_train(params, cfg, batch, remat=False):
         with SH.restored(scope):
             return heads(params, cfg, x)
     sharded = scope.params is not None
-    logits, values = (checkpoint(head, x, use_reentrant=False) if remat and sharded
-                      else head(x))
+    with trace.phase("model.head", x):
+        logits, values = (checkpoint(head, x, use_reentrant=False) if remat and sharded
+                          else head(x))
     if not torch.is_tensor(aux):
         aux = torch.zeros((), device=logits.device)
     return logits, values, aux

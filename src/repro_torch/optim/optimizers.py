@@ -17,7 +17,11 @@ does not fit one card; in place, each leaf is updated in flat slices of
 2^24 elements (a leaf's first axis may be the layer stack, of length 1),
 so the update's own memory is a few slices of temporaries. The
 numbers are the functional update's, bit for bit: both run one per-leaf
-body (`leaf` in `adamw`), the in-place one slice by slice.
+body (`leaf` in `adamw`), the in-place one slice by slice. Traced
+(`utils/trace.py`), adamw's update is the phases `optim.norm` (the global
+norm, the clip scale, the lr and the bias corrections) and `optim.update`
+(the loop over the leaves, and the functional update's casts to the
+params' dtype).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.utils import tree_global_norm, tree_leaves, tree_map
+from repro_torch.utils import trace, tree_global_norm, tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -125,38 +129,41 @@ def adamw(lr: float | Callable, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
         return m, n, base.float() - lr_t * u
 
     def prologue(grads, state):
-        gnorm = tree_global_norm(grads)
-        scale = _clip_scale(gnorm, clip_norm) if clip_norm else None
-        step = state["step"] + 1
-        return gnorm, scale, step, _lr(lr_fn, step), 1 - b1 ** step.float(), \
-            1 - b2 ** step.float()
+        with trace.phase("optim.norm", state["step"]):
+            gnorm = tree_global_norm(grads)
+            scale = _clip_scale(gnorm, clip_norm) if clip_norm else None
+            step = state["step"] + 1
+            return gnorm, scale, step, _lr(lr_fn, step), 1 - b1 ** step.float(), \
+                1 - b2 ** step.float()
 
     def update(grads, state, params):
         gnorm, scale, step, *k = prologue(grads, state)
         base = state.get("master", params)
-        out = [leaf(g, m, n, b, scale, *k) for g, m, n, b in zip(
-            tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"]),
-            tree_leaves(base))]
-        mu, nu, new_base = (_like(params, [o[c] for o in out]) for c in range(3))
+        with trace.phase("optim.update", step):
+            out = [leaf(g, m, n, b, scale, *k) for g, m, n, b in zip(
+                tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"]),
+                tree_leaves(base))]
+            mu, nu, new_base = (_like(params, [o[c] for o in out]) for c in range(3))
+            new_params = tree_map(lambda b, p: b.to(p.dtype), new_base, params)
         new_state = {"step": step, "mu": mu, "nu": nu}
         if master_fp32:
             new_state["master"] = new_base
-        new_params = tree_map(lambda b, p: b.to(p.dtype), new_base, params)
         return new_params, new_state, {"grad_norm": gnorm, "lr": k[0]}
 
     def update_inplace(grads, state, params):
         gnorm, scale, step, *k = prologue(grads, state)
         master = state.get("master")
         bases = tree_leaves(master) if master_fp32 else tree_leaves(params)
-        for g, m, n, b, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
-                                 tree_leaves(state["nu"]), bases, tree_leaves(params)):
-            g, m, n, b, p = g.reshape(-1), _flat(m), _flat(n), _flat(b), _flat(p)
-            for i in range(0, g.numel(), _SLICE_ELEMS):
-                s = slice(i, i + _SLICE_ELEMS)
-                m[s], n[s], new = leaf(g[s], m[s], n[s], b[s], scale, *k)
-                if master_fp32:
-                    b[s] = new
-                p[s] = new.to(p.dtype)
+        with trace.phase("optim.update", step):
+            for g, m, n, b, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
+                                     tree_leaves(state["nu"]), bases, tree_leaves(params)):
+                g, m, n, b, p = g.reshape(-1), _flat(m), _flat(n), _flat(b), _flat(p)
+                for i in range(0, g.numel(), _SLICE_ELEMS):
+                    s = slice(i, i + _SLICE_ELEMS)
+                    m[s], n[s], new = leaf(g[s], m[s], n[s], b[s], scale, *k)
+                    if master_fp32:
+                        b[s] = new
+                    p[s] = new.to(p.dtype)
         return params, {**state, "step": step}, {"grad_norm": gnorm, "lr": k[0]}
 
     return Optimizer(init, update_inplace if inplace else update)

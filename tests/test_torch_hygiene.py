@@ -56,8 +56,8 @@ def test_port_and_chip_smoke_import_no_jax():
     smokes = sorted((ROOT / "tests").glob("smoke_torch_*.py"))
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert {f.name for f in tools} >= {
-        "profile_infserver.py", "profile_learner.py", "time_flash.py", "time_norm_scan.py",
-        "card_procs.py", "mesh_two_ranks.py", "train_memory.py"}
+        "time_flash.py", "time_norm_scan.py", "card_procs.py", "mesh_two_ranks.py",
+        "train_memory.py"}
     assert len(smokes) == 4 and len(examples) == 4
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools + smokes
              + [ROOT / "tests" / "torch_smoke_lib.py"] + examples

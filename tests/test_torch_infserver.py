@@ -147,8 +147,10 @@ def test_registry_and_ticket_protocol_match_jax():
     assert got == ref
     assert got[:4] == ([True, False, False], False, True, True)
     assert got[4]["tickets_expired"] == 1 and got[4]["swap_noops"] == 2
-    assert set(tserver.stats()) == set(jserver.stats())
-    assert set(tserver.telemetry()) == set(jserver.telemetry())
+    # the port adds the queue-wait counters, which `repro` has not
+    assert set(tserver.stats()) == set(jserver.stats()) | {"mean_queue_wait_ms",
+                                                           "max_queue_wait_ms"}
+    assert set(tserver.telemetry()) == set(jserver.telemetry()) | {"mean_queue_wait_ms"}
 
 
 def test_hot_swap_changes_values_and_keeps_stacks_fresh():
