@@ -13,7 +13,10 @@ drives the port's paths on the card:
 - learning: holds the learner's kernels (the two flash-attention backward
   kernels, dq with the delta preprocess in its prologue and dk/dv, and the
   reverse scan, forward and closed-form backward) against their plain
-  versions at the train steps' shapes, runs 10 env train steps
+  versions at the train steps' shapes, and the optimizer's (AdamW's update
+  and the global norm, which replace no TPU kernel) bit for bit against
+  the plain body at the learn cells' largest leaf and at policy-s's params
+  (the train steps' fp32 functional update), runs 10 env train steps
   (tleague-policy-s, PPO + GAE, 32 x 16 rows of 26-token observations, bf16
   compute) and 3 sequence train steps (V-trace over 4096 tokens, window
   512, softcap 30, fp32, remat), and checks step 1 on the card against the
@@ -151,7 +154,8 @@ and 5 against their plain versions.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the
-run. Phases print one JSON line each (among them `launch_floor`: an empty
+run. A train step's launches include the optimizer's: one AdamW update a
+leaf, and one norm launch a leaf and the norm's finish. Phases print one JSON line each (among them `launch_floor`: an empty
 kernel timed as the kernels are); any failed check raises and the script
 exits non-zero. The line before the last lists every kernel with its
 time, bound and launches; the last line is
@@ -306,6 +310,9 @@ INF_REQUESTS, INF_OBS_LEN = 32, 8              # examples/serve_policy.py step 3
 # scan's 0.1 s) is timed over SLOW_CALLS calls, not 20; kernels and library
 # calls always over 20
 SLOW_CALL_S, SLOW_CALLS = 0.05, 5
+# the optimizer's kernels (csrc/adamw.cu) replace no TPU kernel; timed at the
+# learner cells' largest leaf, mistral-large's stacked FFN weight at 2 layers
+OPT_LEAF = 2 * 12288 * 28672
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -320,6 +327,149 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "reverse_discounted_scan_p": ("src/repro_torch/kernels/csrc/reverse_scan.cu",
                                   "src/repro/kernels/vtrace_scan/kernel.py:36"),
 }
+
+
+def optimizer_kernels(dev, device_ms, bound):
+    """AdamW's update and the global norm at OPT_LEAF elements (704.6 M) as
+    the benchmark's learn cells run them: bf16 grad and param, fp32 master
+    and moments, clip, in place (~20 GB of state at the peak). One step of
+    the kernel, into fresh outputs, against the plain body in 2^24-element
+    slices (the in-place CPU path, which the card ran before the kernels):
+    bit for bit; the kernel's norm within 1e-6 of `tree_global_norm`. ms of
+    each kernel, of the plain body and of one library call (the port never
+    calls it): `torch.optim.AdamW(fused=True)` on an fp32 param, which also
+    moves 28 bytes a param, and `torch.linalg.vector_norm`; the bytes bound.
+    Returns {kernel: record}."""
+    import torch
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.adamw import adamw_update, global_norm
+    from repro_torch.kernels.adamw.ops import _SLICE_ELEMS
+    from repro_torch.kernels.adamw.ref import adamw_ref
+    from repro_torch.utils import tree_global_norm
+
+    n = OPT_LEAF
+    gen = torch.Generator(device=dev).manual_seed(9)
+    g = (1e-4 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+    p = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    master = p.float()
+    m = 1e-5 * torch.randn(n, generator=gen, device=dev)
+    v = 1e-10 * torch.rand(n, generator=gen, device=dev)
+    scal = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    k = dict(scale=scal(0.5), lr=scal(3e-6), bc1=1 - 0.9 ** scal(2.0), bc2=1 - 0.999 ** scal(2.0))
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+    slices = [slice(i, i + _SLICE_ELEMS) for i in range(0, n, _SLICE_ELEMS)]
+
+    def plain(s):
+        return adamw_ref(g[s], m[s], v[s], master[s], k["scale"], k["lr"], k["bc1"], k["bc2"],
+                         **hyper)
+
+    out = (torch.empty_like(m), torch.empty_like(v), torch.empty_like(master), torch.empty_like(p))
+    adamw_update(g, m, v, master, out, **k, **hyper)
+    differ = 0
+    for s in slices:
+        nm, nv, nb = plain(s)
+        differ += int(not (torch.equal(nm, out[0][s]) and torch.equal(nv, out[1][s])
+                           and torch.equal(nb, out[2][s]) and torch.equal(nb.to(p.dtype), out[3][s])))
+    check(differ == 0, f"adamw_update at {n} elements: {differ} of {len(slices)} slices "
+                       f"differ from the plain body")
+    del out
+
+    def plain_step():
+        for s in slices:
+            m[s], v[s], new = plain(s)
+            master[s] = new
+            p[s] = new.to(p.dtype)
+
+    inplace = (m, v, master, p)
+    upd_ms = device_ms(lambda: adamw_update(g, m, v, master, inplace, **k, **hyper))
+    upd_plain_ms = device_ms(plain_step, plain=True)
+    upd_bound = bound(cost.adamw(g, m, v, master, inplace, **k, **hyper), "float32")
+
+    norm, want = global_norm([g], 1.0)[0].item(), tree_global_norm([g]).item()
+    norm_err = abs(norm - want) / want
+    check(norm_err <= 1e-6, f"global_norm at {n} elements: {norm_err} of the plain norm")
+    norm_ms = device_ms(lambda: global_norm([g], 1.0))
+    norm_plain_ms = device_ms(lambda: tree_global_norm([g]), plain=True)
+    norm_lib_ms = device_ms(lambda: torch.linalg.vector_norm(g, dtype=torch.float32))
+    norm_bound = bound(cost.global_norm([g]), "float32")
+    del g, p, master, m, v, inplace
+
+    w = torch.nn.Parameter(torch.randn(n, generator=gen, device=dev))
+    w.grad = 1e-4 * torch.randn(n, generator=gen, device=dev)
+    lib = torch.optim.AdamW([w], lr=3e-6, weight_decay=0.0, fused=True)
+    upd_lib_ms = device_ms(lib.step)
+    del w, lib
+    torch.cuda.empty_cache()
+    shape = [n]
+    recs = {"adamw_update": dict(ms=upd_ms, plain_ms=upd_plain_ms, library_ms=upd_lib_ms,
+                                 bound_ms=upd_bound[0], bound_by=upd_bound[1], max_abs_err=0.0,
+                                 dtype="bfloat16 grad and param, fp32 master and moments"),
+            "global_norm": dict(ms=norm_ms, plain_ms=norm_plain_ms, library_ms=norm_lib_ms,
+                                bound_ms=norm_bound[0], bound_by=norm_bound[1],
+                                max_abs_err=norm_err, dtype="bfloat16 grad")}
+    recs["adamw_update"]["policy_s_fp32_functional"] = policy_update_check(dev)
+    for name, r in recs.items():
+        r.update(shape=shape, label="learn cells' largest leaf")
+        emit("kernel", name=name, **r)
+    return recs
+
+
+def policy_update_check(dev):
+    """The env and seq train steps' own update at policy-s's params:
+    `adamw(3e-4, clip_norm=1.0)`, fp32, functional, its second step (the
+    moments not 0) with the clip in force, against the plain body on the
+    card with the kernel's clip scale: params and moments bit for bit; the
+    norm the same from the wrapper called again, within 1e-6 of
+    `tree_global_norm`. Returns what was held."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.adamw import global_norm
+    from repro_torch.kernels.adamw.ref import adamw_ref
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree_global_norm, tree_leaves, tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    params = init_params(gen, get_arch("tleague-policy-s"))
+    check(all(p.dtype == torch.float32 for p in tree_leaves(params)),
+          "policy-s update: the params are not fp32")
+    grad = lambda p: 1e-2 * torch.randn(p.shape, generator=gen, device=dev)
+    opt = adamw(3e-4, clip_norm=1.0)
+    state = opt.init(params)
+    params, state, _ = opt.update(tree_map(grad, params), state, params)
+    grads = tree_map(grad, params)
+    new_params, new_state, metrics = opt.update(grads, state, params)
+    norm, scale = global_norm(tree_leaves(grads), 1.0)
+    want = tree_global_norm(grads)
+    norm_err = abs(norm.item() - want.item()) / want.item()
+    check(torch.equal(norm, metrics["grad_norm"]) and norm_err <= 1e-6,
+          f"policy-s update: norm {metrics['grad_norm'].item()}, again {norm.item()}, "
+          f"plain {want.item()}")
+    check(scale.item() < 1.0, f"policy-s update: the clip is not in force ({scale.item()})")
+    step = (state["step"] + 1).float()
+    k = dict(lr=metrics["lr"], bc1=1 - 0.9 ** step, bc2=1 - 0.999 ** step)
+    differ = 0
+    for g, m, v, p, m1, v1, p1 in zip(*(tree_leaves(t) for t in (
+            grads, state["mu"], state["nu"], params, new_state["mu"], new_state["nu"],
+            new_params))):
+        nm, nv, nb = adamw_ref(g, m, v, p, scale, k["lr"], k["bc1"], k["bc2"], b1=0.9,
+                               b2=0.999, eps=1e-8, weight_decay=0.0)
+        differ += int(not (torch.equal(nm, m1) and torch.equal(nv, v1) and torch.equal(nb, p1)))
+    leaves = len(tree_leaves(params))
+    check(differ == 0, f"policy-s update: {differ} of {leaves} leaves differ from the plain body")
+    return {"leaves": leaves, "params": sum(p.numel() for p in tree_leaves(params)),
+            "leaves_differing": differ, "norm_rel_err": norm_err, "clip_scale": scale.item()}
+
+
+def optimizer_launches(params):
+    """An adamw step's launches over the param tree `params` (plain or
+    DTensor leaves, each with elements): one update a leaf, and one norm
+    launch a leaf and the norm's finish."""
+    from repro_torch.utils import tree_leaves
+    n = len(tree_leaves(params))
+    return {"adamw_update": n, "global_norm": n + 1}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2566,6 +2716,7 @@ def audio_phase(dev, counters, smi):
     torch.cuda.reset_peak_memory_stats()
     params = init_params(torch.Generator(device=dev).manual_seed(18), cfg)
     rec["params"] = sum(t.numel() for t in tree_leaves(params))
+    per_step.update(optimizer_launches(params))
 
     with torch.inference_mode():
         frames = torch.randn(AUDIO_PREFILL_B, AUDIO_PREFILL_T, cfg.d_model, device=dev,
@@ -2704,6 +2855,7 @@ def train_families_phase(dev, counters, smi):
         torch.cuda.reset_peak_memory_stats()
         params = init_params(torch.Generator(device=dev).manual_seed(24), cfg)
         rec["params"] = sum(t.numel() for t in tree_leaves(params))
+        per_step.update(optimizer_launches(params))
         batch = seq_batch(rng, T, cfg.vocab_size, dev, B=B)
         if P:
             batch["patch_embeds"] = torch.randn(
@@ -3057,13 +3209,15 @@ def mesh_phase(dev, counters, smi, per_forward, holds):
         pd = SH.distribute(params, pshard, mesh)
         od = SH.distribute(opt.init(params), oshard, mesh)
         del params
+        # the gradient's launches, then adamw's on the DTensors' local shards
+        per_step = dict(n_sharded, **optimizer_launches(pd))
         torch.cuda.reset_peak_memory_stats()
         step_ms, losses = [], []
         for i in range(1 + MESH_TRAIN_STEPS):             # one warm-up
             zero(counters)
             ms, (pd, od, m) = sync_wall(lambda: built["fn"](pd, od, bd))
             n = add("mesh: sharded train step (bf16)")
-            check(n == n_sharded, f"mesh: bf16 step launches {n}, want {n_sharded}")
+            check(n == per_step, f"mesh: bf16 step launches {n}, want {per_step}")
             losses.append(float(m["loss"].full_tensor() if SH.is_dtensor(m["loss"])
                                 else m["loss"]))
             if i:
@@ -3086,7 +3240,7 @@ def mesh_phase(dev, counters, smi, per_forward, holds):
         n = add("mesh: counted bf16 step")
         step_peak = torch.cuda.max_memory_allocated() - (before - args_bytes)
         got = counter.result()
-        check(n == n_sharded, f"mesh: counted step launches {n}, uncounted {n_sharded}")
+        check(n == per_step, f"mesh: counted step launches {n}, uncounted {per_step}")
         flops_rel = abs(got["flops"] - meas["flops"]) / meas["flops"]
         check(flops_rel <= COUNT_FLOPS_RTOL,
               f"mesh: counted step FLOPs {got['flops']} vs the dry-run's {meas['flops']}")
@@ -3114,7 +3268,7 @@ def mesh_phase(dev, counters, smi, per_forward, holds):
                         "batch": MESH_TRAIN_B, "tokens": SEQ_T, "max_abs_err": errs,
                         "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
                         "losses": losses, "peak_mb": peak_mb,
-                        "launches_per_step": n_sharded}
+                        "launches_per_step": per_step}
         emit("mesh_train", card=smi, mesh=[1, 1], tol=CARD_VS_CPU_TOL,
              published_layers=get_arch(MESH_TRAIN_ARCH).num_layers,
              params=sum(t.numel() for t in tree_leaves(pd)), **out["train"])
@@ -3326,6 +3480,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.infserver import InfServer
     from repro_torch.kernels import _build, cost, dispatch
+    from repro_torch.kernels.adamw import adamw_update, global_norm
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -3345,6 +3500,7 @@ def main() -> int:
         reverse_discounted_scan_p,
     )
     from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
+    from repro_torch.launch.specs import param_shapes
     from repro_torch.learners import build_env_train_step, build_seq_train_step
     from repro_torch.optim import adamw
     from repro_torch.utils import tree_leaves, tree_map, tree_stack
@@ -3918,9 +4074,12 @@ def main() -> int:
 
     lap("kernels_bwd_scan")
 
+    optimizer = optimizer_kernels(dev, device_ms, bound)
+    lap("kernels_optimizer")
+
     # -- 4. serve the policy nets through the InfServer -----------------------
     counters = (rmsnorm, flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv,
-                reverse_discounted_scan_p)
+                reverse_discounted_scan_p, adamw_update, global_norm)
     serve_kernels = ("rmsnorm", "flash_attention_fwd")
     serve = {}
     for c in counters:
@@ -4052,15 +4211,18 @@ def main() -> int:
     # per layer; backward: dq (which computes delta in its prologue, so the
     # preprocess has no launch of its own) and dk/dv per layer; 1 scan (GAE
     # or V-trace; its backward is not on the path: the targets are detached).
-    # remat runs each unit's forward again in the backward.
+    # remat runs each unit's forward again in the backward. Then the
+    # optimizer's (`optimizer_launches`).
     cfg_env = get_arch("tleague-policy-s")
     cfg_seq = seq_config(get_arch)
     L = cfg_env.num_layers
     per_step = {
         "env": {"rmsnorm": 2 * L + 1, "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1},
+                "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1,
+                **optimizer_launches(param_shapes(cfg_env))},
         "seq": {"rmsnorm": 4 * L + 1, "flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1}}
+                "flash_attention_bwd_dkv": L, "reverse_discounted_scan_p": 1,
+                **optimizer_launches(param_shapes(cfg_seq))}}
     train = {}
     for c in counters:
         c.launches = 0
@@ -4106,7 +4268,7 @@ def main() -> int:
     for name, n in launches["train"].items():
         check(n > 0, f"{name} was never launched on the learner path")
     st = dispatch.stats()
-    for op in ("attention", "rmsnorm", "reverse_scan"):
+    for op in ("attention", "rmsnorm", "reverse_scan", "global_norm", "adamw"):
         check(st.get(f"{op}|kernel", 0) > 0, f"learner path: {op} not on the kernel tier")
     check(not any("|reference" in key for key in st),
           f"learner path: plain versions ran on the card: {st}")
@@ -4254,7 +4416,7 @@ def main() -> int:
                            name, 0),
                        f"mesh_prefill_{MESH_DECODE_ARCH}":
                            mesh_out["decode"]["launches_per_prefill"].get(name, 0)}
-                for name in SOURCES}
+                for name in (*SOURCES, "adamw_update", "global_norm")}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
         L = get_arch(arch).num_layers
@@ -4275,6 +4437,16 @@ def main() -> int:
                         "dtype": head["dtype"],
                         "main_path_ms": {r["label"]: [r["ms"], r["bound_ms"]]
                                          for r in results[name] if r["label"] in main_shapes}})
+    # the optimizer's kernels, which replace no TPU kernel
+    for name in ("adamw_update", "global_norm"):
+        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+                        "replaces": None, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "launches_per_unit": per_unit[name],
+                        **{key: optimizer[name][key] for key in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "shape", "dtype")}})
     # a short digest first, so a log that keeps only the tail still has it:
     # serve is [median flush ms, rows/s] per flush kind at 256 rows; train is
     # the median step ms

@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import sys
 import threading
 from typing import Any, Dict, Sequence, Tuple
 
@@ -396,8 +397,25 @@ def distribute(tree, specs, mesh):
 
 
 def is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+    # no import: a DTensor exists only once its module is loaded, and loading
+    # it costs a second in a process that never shards (the optimizer asks)
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return dtensor is not None and isinstance(x, dtensor.DTensor)
+
+
+def shard_groups(t) -> tuple:
+    """The process groups of the mesh dims (of more than one rank) that the
+    DTensor `t` is split over: the sum over them of each rank's sum of its
+    shard is the sum of `t`. () for a plain tensor."""
+    if not is_dtensor(t):
+        return ()
+    mesh, out = t.device_mesh, []
+    for i, pl in enumerate(t.placements):
+        if not (pl.is_shard() or pl.is_replicate()):
+            raise ValueError(f"shard_groups: a {pl} placement holds no shard of the sum")
+        if pl.is_shard() and mesh.size(i) > 1:
+            out.append(mesh.get_group(i))
+    return tuple(out)
 
 
 def spec_of(t, mesh) -> tuple:

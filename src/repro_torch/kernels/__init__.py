@@ -8,6 +8,9 @@ beside its plain PyTorch version (`ref.py`):
   rmsnorm         - fused RMS normalization (csrc/rmsnorm.cu).
   vtrace_scan     - reverse discounted scan behind GAE and V-trace
                     (csrc/reverse_scan.cu), with its closed-form gradient.
+  adamw           - AdamW's per-leaf update and the global gradient norm
+                    with its clip scale (csrc/adamw.cu), for the learner's
+                    optimizer; they replace no TPU kernel (XLA fuses AdamW).
 
 `repro_torch.kernels.dispatch` is the entry point models/ call: CUDA
 tensors launch the kernels, CPU tensors run the plain versions. The

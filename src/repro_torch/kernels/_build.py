@@ -6,9 +6,9 @@ started together, then linked into one `.so` under `build/repro_torch/`
 in the checkout. The file name carries a hash of the sources and flags, so
 an edited kernel is rebuilt and a built one is reused. The library is
 loaded with `ctypes`; every entry point has its `argtypes` declared
-(`c_void_p` for pointers and the stream, `c_int` for ints, `c_float` for
-scalars) and returns `cudaGetLastError()`, which `check()` turns into an
-exception.
+(`c_void_p` for pointers and the stream, `c_int` for ints, `c_longlong`
+for element counts past 2^31, `c_float` for scalars) and returns
+`cudaGetLastError()`, which `check()` turns into an exception.
 
 Processes that start together on a fresh checkout (the league's learner,
 actor and serving processes) build once: `build()` holds an `fcntl.flock`
@@ -37,7 +37,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas=-v: registers, shared memory and spills per kernel, kept in build_log
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argtypes; every one returns cudaError_t as int
 SIGNATURES = {
     # x, w, y, rows, d, rows_per_weight, eps, x_is_bf16, stream
@@ -55,6 +55,14 @@ SIGNATURES = {
     "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
     # deltas, decays, init, y, B, T, is_bf16, stream
     "reverse_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # g, m, v, base, m_out, v_out, master_out, p_out, n, scale, lr, bc1, bc2,
+    # b1, 1 - b1, b2, 1 - b2, eps, weight_decay, g_is_bf16, p_is_bf16, master,
+    # clip, stream
+    "adamw_update": [_P] * 8 + [_L] + [_P] * 4 + [_F] * 6 + [_I] * 4 + [_P],
+    # g, n, g_is_bf16, partial, blocks, stream
+    "global_norm_sumsq": [_P, _L, _I, _P, _I, _P],
+    # partial, slots, out, max_norm, root, clip, stream
+    "global_norm_finish": [_P, _I, _P, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,10 @@ from here. Each function takes the wrapper's own arguments and returns
   - bytes: HBM bytes the kernel must move, each input read once and each
     output written once (RMSNorm's weight and the scan's `init` at fp32,
     as the wrappers pass them);
-  - flops: RMSNorm 4 per element, the scan 2; attention counts the live
+  - flops: RMSNorm 4 per element, the scan 2, the norm's sum of squares
+    2, AdamW 14 (the moments 7; u: three divisions, a square root and
+    eps; lr times u and the subtraction), one more with the clip and two
+    more with weight decay; attention counts the live
     (q, k) pairs that the causal, window and `kv_len` masks leave: the
     forward 4·d per pair, dq 6·d per pair (the recomputed scores, dP, dQ)
     plus 2·d per row for the delta prologue, dk/dv 8·d per pair (scores,
@@ -92,6 +95,23 @@ def attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, kv_len=
     return Work(8 * d * bh * live,
                 (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) * esz
                 + 2 * lse.numel() * 4)
+
+
+def adamw(g, m, v, base, out, *, scale=None, weight_decay=0.0, **_) -> Work:
+    """One leaf's step: g, m, v and the base (master or param) read; m, v,
+    the master (when kept) and the param written, each in its dtype."""
+    _, _, master_out, p_out = out
+    n = g.numel()
+    per = (g.element_size() + base.element_size() + 16 + p_out.element_size()
+           + (4 if master_out is not None else 0))
+    return Work((14 + (scale is not None) + 2 * bool(weight_decay)) * n, per * n)
+
+
+def global_norm(grads, *_, **__) -> Work:
+    """Every grad read once; the partial sums (4 bytes a block) and the
+    finish are left out."""
+    return Work(2 * sum(g.numel() for g in grads),
+                sum(g.numel() * g.element_size() for g in grads))
 
 
 def reverse_scan(deltas, decays, init, *_, **__) -> Work:

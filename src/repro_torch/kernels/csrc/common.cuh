@@ -32,6 +32,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(v);  // round to nearest even, as astype(bfloat16)
 }
 
+// The blocks of `kernel`, launched with `threads` threads, that the card
+// holds at once: its SMs times the resident blocks per SM.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return sms * per_sm > 1 ? sms * per_sm : 1;
+}
+
 // -- 16-byte vectors of fp32 or bf16 held as uint4 ---------------------------
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {

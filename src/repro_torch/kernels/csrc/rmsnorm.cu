@@ -189,21 +189,10 @@ rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __r
   }
 }
 
-// The blocks of `kernel` that the card holds at once: its SMs times the
-// resident blocks per SM.
-template <typename Kernel>
-int resident_blocks(Kernel kernel) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  return std::max(1, sms * per_sm);
-}
-
 template <typename T, int G, int VPL>
 void launch_rows(const T* x, const float* w, T* y, int rows, int rows_per_weight, float inv_d,
                  float eps, cudaStream_t stream) {
-  static const int cap = resident_blocks(rmsnorm_rows_kernel<T, G, VPL>);
+  static const int cap = repro::resident_blocks(rmsnorm_rows_kernel<T, G, VPL>, kThreads);
   const int rows_per_block = kWarps * (32 / G);
   const int grid = std::min((rows + rows_per_block - 1) / rows_per_block, cap);
   rmsnorm_rows_kernel<T, G, VPL><<<grid, kThreads, 0, stream>>>(x, w, y, rows, rows_per_weight,
@@ -213,7 +202,7 @@ void launch_rows(const T* x, const float* w, T* y, int rows, int rows_per_weight
 template <typename T, int VEC>
 void launch_warp(const T* x, const float* w, T* y, int rows, int d, int rows_per_weight,
                  float inv_d, float eps, cudaStream_t stream) {
-  static const int cap = resident_blocks(rmsnorm_warp_kernel<T, VEC>);
+  static const int cap = repro::resident_blocks(rmsnorm_warp_kernel<T, VEC>, kThreads);
   const int grid = std::min((rows + kWarps - 1) / kWarps, cap);
   rmsnorm_warp_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(x, w, y, rows, d, rows_per_weight,
                                                              inv_d, eps);

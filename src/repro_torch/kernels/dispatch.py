@@ -9,7 +9,10 @@ which tier an op runs as:
 
 The tensor's device alone decides, and the kernel wrappers own that
 decision: a CUDA tensor launches the kernel or the wrapper raises, and
-nothing on the card falls back to the plain version. `repro`'s modes
+nothing on the card falls back to the plain version. AdamW's norm and
+update (`optim/optimizers.py`) follow the same rule and count here as
+``global_norm`` and ``adamw``, one count an update (a DTensor's by its
+local shard). `repro`'s modes
 (``REPRO_KERNELS``, ``force``, ``set_mode``) have no counterpart here.
 
 Inference-only precision (`REPRO_KERNELS_INFER=bf16`): inside a

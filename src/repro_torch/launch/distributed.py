@@ -297,13 +297,14 @@ def kernel_report(device) -> dict:
     """This process's kernel launch counts (each wrapper's `.launches`),
     the dispatch's per-call routing counts, and its peak CUDA memory."""
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.adamw.ops import adamw_update, global_norm
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.vtrace_scan.ops import reverse_discounted_scan_p
 
     wrappers = (rmsnorm, flash_attention_fwd, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv, reverse_discounted_scan_p)
+                flash_attention_bwd_dkv, reverse_discounted_scan_p, adamw_update, global_norm)
     on_card = torch.device(device).type == "cuda"
     return {"launches": {w.__name__: w.launches for w in wrappers},
             "dispatch": dispatch.stats(),

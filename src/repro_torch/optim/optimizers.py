@@ -13,15 +13,31 @@ caller donating params and state to a jitted step: the update writes the
 new params, moments and master params into the tensors it was given and
 returns them. A functional update holds the old and the new params and
 moments at once (32 bytes a param for fp32 adamw), which at 2-4 B params
-does not fit one card; in place, each leaf is updated in flat slices of
-2^24 elements (a leaf's first axis may be the layer stack, of length 1),
-so the update's own memory is a few slices of temporaries. The
-numbers are the functional update's, bit for bit: both run one per-leaf
-body (`leaf` in `adamw`), the in-place one slice by slice. Traced
-(`utils/trace.py`), adamw's update is the phases `optim.norm` (the global
-norm, the clip scale, the lr and the bias corrections) and `optim.update`
-(the loop over the leaves, and the functional update's casts to the
-params' dtype).
+does not fit one card.
+
+AdamW's two passes over the leaves, the global norm (with the clip scale)
+and the update, run through `kernels/adamw`'s wrappers, which own the
+device decision (`kernels/dispatch.py`'s rule, counted in
+`dispatch.stats()` as `global_norm|<tier>` and `adamw|<tier>`):
+  - CUDA tensors run the hand-written kernels: one launch a leaf for the
+    norm and its finish, one a leaf for the update, over whole leaves with
+    no temporaries; a leaf they cannot take raises;
+  - meta tensors inside `dispatch.abstract()` check and count the kernels'
+    work and launch nothing;
+  - CPU tensors run the plain body (`kernels/adamw/ref.py`) in flat slices
+    of 2^24 elements (a leaf's first axis may be the layer stack, of
+    length 1), so its own memory is a few slices of temporaries.
+DTensor leaves (the sharded steps) take the same path on their local
+shards, in the placements of the params that `sharding.reduce_grads`
+gives their grads: the update is elementwise, and the norm sums each
+shard's squares over the mesh dims its leaf is split on.
+On each device the in-place update gives the functional update's numbers
+bit for bit: both run one per-leaf body, with its outputs set to its
+inputs or to fresh tensors.
+Traced (`utils/trace.py`), adamw's update is the phases `optim.norm` (the
+global norm, the clip scale, the lr and the bias corrections) and
+`optim.update` (the loop over the leaves, and the functional update's
+allocations).
 """
 from __future__ import annotations
 
@@ -29,6 +45,10 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, shard_groups
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.adamw import ops as K
+from repro_torch.kernels.adamw.ref import clip_scale_ref, scaled_ref
 from repro_torch.utils import trace, tree_global_norm, tree_leaves, tree_map
 
 
@@ -37,18 +57,10 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Any, Any], tuple]   # (grads, state, params) -> (new_params, state, metrics)
 
 
-def _clip_scale(norm, max_norm):
-    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-
-
-def _scaled(g, scale):
-    return (g.float() * scale).to(g.dtype)
-
-
 def clip_by_global_norm(grads, max_norm):
     norm = tree_global_norm(grads)
-    scale = _clip_scale(norm, max_norm)
-    return tree_map(lambda g: _scaled(g, scale), grads), norm
+    scale = clip_scale_ref(norm, max_norm)
+    return tree_map(lambda g: scaled_ref(g, scale), grads), norm
 
 
 def _lr(lr_fn, step):
@@ -93,15 +105,18 @@ def sgd(lr: float | Callable, momentum: float = 0.0, clip_norm: float = 0.0):
     return Optimizer(init, update)
 
 
-_SLICE_ELEMS = 1 << 24       # elements per slice of an in-place update
+def _local(t):
+    """A DTensor's local shard, or `t`."""
+    return t.to_local() if is_dtensor(t) else t
 
 
-def _flat(t):
-    """`t`'s elements as one flat view, which an in-place update writes
-    through."""
-    if not t.is_contiguous():
-        raise ValueError("adamw(inplace=True) updates contiguous tensors only")
-    return t.view(-1)
+def _laid_out_as(t, like):
+    """The local shard `t` as a DTensor laid out as `like`, or `t`."""
+    if t is None or not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
 
 
 def adamw(lr: float | Callable, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
@@ -109,6 +124,7 @@ def adamw(lr: float | Callable, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     """AdamW with an optional global-norm clip. inplace=True consumes
     `params` and `state` (see the module's docstring)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
+    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
     def init(params):
         zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -118,52 +134,52 @@ def adamw(lr: float | Callable, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
             state["master"] = tree_map(lambda p: p.float(), params)
         return state
 
-    def leaf(g, m, n, base, scale, lr_t, bc1, bc2):
-        """One leaf's (or slice's) step: its new fp32 moments and base."""
-        g32 = (g if scale is None else _scaled(g, scale)).float()
-        m = b1 * m + (1 - b1) * g32
-        n = b2 * n + (1 - b2) * torch.square(g32)
-        u = (m / bc1) / (torch.sqrt(n / bc2) + eps)
-        if weight_decay:
-            u = u + weight_decay * base.float()
-        return m, n, base.float() - lr_t * u
-
     def prologue(grads, state):
+        """The norm, the clip scale, the new step and the scalars the
+        update reads (lr and the bias corrections), this rank's."""
+        leaves = tree_leaves(grads)
+        local = [_local(g) for g in leaves]
+        tier = dispatch.resolve(local[0])
         with trace.phase("optim.norm", state["step"]):
-            gnorm = tree_global_norm(grads)
-            scale = _clip_scale(gnorm, clip_norm) if clip_norm else None
+            dispatch.note("global_norm", tier)
+            gnorm, scale = K.global_norm(local, clip_norm,
+                                         groups=[shard_groups(g) for g in leaves])
             step = state["step"] + 1
-            return gnorm, scale, step, _lr(lr_fn, step), 1 - b1 ** step.float(), \
-                1 - b2 ** step.float()
+            t = _local(step)
+            return tier, gnorm, step, dict(scale=scale, lr=_lr(lr_fn, t),
+                                           bc1=1 - b1 ** t.float(), bc2=1 - b2 ** t.float())
+
+    def leaves_of(grads, state, params):
+        """(grad, mu, nu, base, param) per leaf; the base is the master or
+        the param."""
+        base = state["master"] if master_fp32 else params
+        return zip(*(tree_leaves(t) for t in (grads, state["mu"], state["nu"], base, params)))
 
     def update(grads, state, params):
-        gnorm, scale, step, *k = prologue(grads, state)
-        base = state.get("master", params)
+        tier, gnorm, step, k = prologue(grads, state)
         with trace.phase("optim.update", step):
-            out = [leaf(g, m, n, b, scale, *k) for g, m, n, b in zip(
-                tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"]),
-                tree_leaves(base))]
-            mu, nu, new_base = (_like(params, [o[c] for o in out]) for c in range(3))
-            new_params = tree_map(lambda b, p: b.to(p.dtype), new_base, params)
+            dispatch.note("adamw", tier)
+            out = []
+            for g, m, n, b, p in leaves_of(grads, state, params):
+                fresh = (torch.empty_like(_local(m)), torch.empty_like(_local(n)),
+                         torch.empty_like(_local(b)) if master_fp32 else None,
+                         torch.empty_like(_local(p)))
+                K.adamw_update(_local(g), _local(m), _local(n), _local(b), fresh, **k, **hyper)
+                out.append([_laid_out_as(t, like) for t, like in zip(fresh, (m, n, b, p))])
+            mu, nu, new_base, new_params = (_like(params, [o[c] for o in out]) for c in range(4))
         new_state = {"step": step, "mu": mu, "nu": nu}
         if master_fp32:
             new_state["master"] = new_base
-        return new_params, new_state, {"grad_norm": gnorm, "lr": k[0]}
+        return new_params, new_state, {"grad_norm": gnorm, "lr": k["lr"]}
 
     def update_inplace(grads, state, params):
-        gnorm, scale, step, *k = prologue(grads, state)
-        master = state.get("master")
-        bases = tree_leaves(master) if master_fp32 else tree_leaves(params)
+        tier, gnorm, step, k = prologue(grads, state)
         with trace.phase("optim.update", step):
-            for g, m, n, b, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
-                                     tree_leaves(state["nu"]), bases, tree_leaves(params)):
-                g, m, n, b, p = g.reshape(-1), _flat(m), _flat(n), _flat(b), _flat(p)
-                for i in range(0, g.numel(), _SLICE_ELEMS):
-                    s = slice(i, i + _SLICE_ELEMS)
-                    m[s], n[s], new = leaf(g[s], m[s], n[s], b[s], scale, *k)
-                    if master_fp32:
-                        b[s] = new
-                    p[s] = new.to(p.dtype)
-        return params, {**state, "step": step}, {"grad_norm": gnorm, "lr": k[0]}
+            dispatch.note("adamw", tier)
+            for g, m, n, b, p in leaves_of(grads, state, params):
+                m, n, b, p = (_local(t) for t in (m, n, b, p))
+                K.adamw_update(_local(g), m, n, b, (m, n, b if master_fp32 else None, p),
+                               **k, **hyper)
+        return params, {**state, "step": step}, {"grad_norm": gnorm, "lr": k["lr"]}
 
     return Optimizer(init, update_inplace if inplace else update)

@@ -15,7 +15,9 @@ Tolerances: fp32 2e-5 (RMSNorm) and 1e-4 (attention: the kernel sums the
 score and p.V products in another order than the plain version's matmuls);
 bf16 2e-2. The attention backward is held at 1e-4 (fp32) and 2e-2 (bf16) of
 max(1, max |plain|); the reverse scan at 1e-5 of max |y|, since it
-reassociates the recurrence.
+reassociates the recurrence. AdamW's update is held to the plain body bit
+for bit (it spells out each of the plain ops' fp32 roundings); the global
+norm to 1e-6 of `tree_global_norm`, since both sum in fp32 in other orders.
 """
 import dataclasses
 
@@ -32,6 +34,8 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_bwd_dq,
     flash_attention_fwd,
 )
+from repro_torch.kernels.adamw import adamw_update, global_norm
+from repro_torch.kernels.adamw.ref import adamw_ref, clip_scale_ref
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -41,11 +45,11 @@ from repro_torch.kernels.vtrace_scan.ops import (
 )
 from repro_torch.kernels.vtrace_scan.ref import reverse_discounted_scan_ref
 from repro_torch.core import LeagueMgr, SelfPlayPFSPGameMgr
-from repro_torch.learners import DataServer, Learner, build_env_train_step
+from repro_torch.learners import DataServer, Learner, build_env_train_step, build_seq_train_step
 from repro_torch.models import init_params
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.params import build_manifest, leaf_hash
-from repro_torch.utils import tree_flatten_with_path, tree_leaves, tree_map
+from repro_torch.utils import tree_flatten_with_path, tree_global_norm, tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -631,3 +635,181 @@ def test_moe_apply_ep_on_the_card_matches_moe_apply(gen, arch):
     torch.testing.assert_close(a1, a0, rtol=1e-4, atol=1e-5)
     for a, b in zip(g1, g0):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+# -- the optimizer: AdamW's update and the global norm -------------------------
+
+def _at_offset(t, off):
+    """t as a contiguous view `off` elements into its storage (not 16-byte
+    aligned for off = 1)."""
+    return torch.cat([t.new_zeros(off), t.flatten()])[off:].view(t.shape) if off else t
+
+
+# a 0-d scalar, whole 16-byte vectors, a ragged length, a stacked (1, ...)
+# leaf and one of several blocks with a ragged end
+ADAMW_SHAPES = [(), (64,), (1037,), (1, 24, 40), (3, 100003)]
+ADAMW_KINDS = {"fp32-wd": (torch.float32, False, 0.01), "bf16-master": (torch.bfloat16, True, 0.0),
+               "bf16": (torch.bfloat16, False, 0.0)}
+HYPER = dict(b1=0.9, b2=0.999, eps=1e-8)
+
+
+@pytest.mark.parametrize("kind", list(ADAMW_KINDS))
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("off", [0, 1])
+def test_adamw_kernel_equals_the_plain_body_bitwise(gen, kind, clip, off):
+    """The kernel's new moments, master and param against the plain body
+    (`adamw_ref`) run on the card: torch.equal, fresh outputs and in place;
+    off = 1 puts every tensor 1 element into its storage (element by
+    element)."""
+    dtype, master, wd = ADAMW_KINDS[kind]
+    dev = "cuda"
+    scal = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    scale = scal(0.37) if clip else None
+    lr, bc1, bc2 = scal(3e-3), 1 - 0.9 ** scal(3.0), 1 - 0.999 ** scal(3.0)
+    before = adamw_update.launches
+    for shape in ADAMW_SHAPES:
+        rnd = lambda: torch.randn(shape, generator=gen, device=dev)
+        g = _at_offset((3 * rnd()).to(dtype), off)
+        m = _at_offset(0.1 * rnd(), off)
+        v = _at_offset(0.01 * rnd().square(), off)
+        p = _at_offset(rnd().to(dtype), off)
+        base = _at_offset(p.float() + 1e-3 * rnd(), off) if master else p
+        kw = dict(scale=scale, lr=lr, bc1=bc1, bc2=bc2, weight_decay=wd, **HYPER)
+        want = adamw_ref(g, m, v, base, scale, lr, bc1, bc2, weight_decay=wd, **HYPER)
+        out = (torch.empty_like(m), torch.empty_like(v),
+               torch.empty_like(base) if master else None, torch.empty_like(p))
+        adamw_update(g, m, v, base, out, **kw)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]), (kind, shape)
+        if master:
+            assert torch.equal(out[2], want[2]), (kind, shape)
+        assert torch.equal(out[3], want[2].to(p.dtype)), (kind, shape)
+        ins = [_at_offset(t.clone(), off) for t in (m, v, base)] + [_at_offset(p.clone(), off)]
+        m2, v2, b2, p2 = ins
+        if not master:
+            b2 = p2
+        adamw_update(g, m2, v2, b2, (m2, v2, b2 if master else None, p2), **kw)
+        for a, b in zip((m2, v2, p2), (out[0], out[1], out[3])):
+            assert torch.equal(a, b), (kind, shape)
+        if master:
+            assert torch.equal(b2, out[2])
+    assert adamw_update.launches == before + 2 * len(ADAMW_SHAPES)
+
+
+@pytest.mark.parametrize("kw", [dict(weight_decay=0.01, clip_norm=1.0),
+                                dict(master_fp32=True, clip_norm=1.0),
+                                dict(clip_norm=1.0)], ids=["fp32", "bf16-master", "bf16"])
+def test_adamw_in_place_equals_the_functional_update_on_the_card(gen, kw):
+    """Three steps: in place returns the very tensors it was given and gives
+    the functional update's params, state and metrics bit for bit."""
+    dtype = torch.float32 if "weight_decay" in kw else torch.bfloat16
+    params = {"a": torch.randn(7, 5, generator=gen, device="cuda").to(dtype),
+              "b": {"c": torch.randn(11, 3, generator=gen, device="cuda").to(dtype),
+                    "s": torch.randn((), generator=gen, device="cuda").to(dtype)},
+              "stack": torch.randn(1, 64, 40, generator=gen, device="cuda").to(dtype)}
+    fopt, iopt = adamw(1e-2, **kw), adamw(1e-2, inplace=True, **kw)
+    fp, fs = params, fopt.init(params)
+    ip, is_ = tree_map(torch.clone, params), fopt.init(params)
+    for _ in range(3):
+        grads = tree_map(lambda p: (3 * torch.randn(p.shape, generator=gen, device="cuda"))
+                         .to(dtype), params)
+        fp, fs, fm = fopt.update(grads, fs, fp)
+        held = lambda p, s: tree_leaves((p, {k: v for k, v in s.items() if k != "step"}))
+        leaves = held(ip, is_)
+        ip2, is_, im = iopt.update(grads, is_, ip)
+        assert all(a is b for a, b in zip(held(ip2, is_), leaves))
+        ip = ip2
+    for a, b in zip(tree_leaves((fp, fs)), tree_leaves((ip, is_))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(torch.equal(fm[k], im[k]) for k in fm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_norm_kernel_matches_tree_global_norm(gen, dtype):
+    """Within 1e-6 of `tree_global_norm` (fp32 sums in other orders); the
+    same bits from two calls (no atomics); the clip scale the plain clip's
+    arithmetic on the kernel's norm, bit for bit."""
+    shapes = [(), (7,), (1037,), (1, 24, 40), (3, 1_000_003)]
+    grads = [(2 * torch.randn(s, generator=gen, device="cuda")).to(dtype) for s in shapes]
+    grads.append(_at_offset(grads[2].clone(), 1))            # element by element
+    grads.append(torch.empty(0, 4, dtype=dtype, device="cuda"))  # no elements, no launch
+    before = global_norm.launches
+    norm, scale = global_norm(grads, 1.0)
+    want = tree_global_norm(grads)
+    assert abs(norm.item() - want.item()) <= 1e-6 * want.item()
+    norm2, scale2 = global_norm(grads, 1.0)
+    assert torch.equal(norm, norm2) and torch.equal(scale, scale2)
+    assert torch.equal(scale, clip_scale_ref(norm, 1.0))
+    assert global_norm(grads)[1] is None
+    assert global_norm.launches == before + 3 * (len(shapes) + 2)
+
+
+def test_seq_train_step_runs_the_optimizer_kernels(gen):
+    """One `build_seq_train_step` step of policy-s at T = 64 with the
+    benchmark's optimizer (bf16 params, fp32 master, clip, in place): the
+    norm and update kernels launch and are counted on the kernel tier."""
+    from repro_torch.kernels import dispatch
+
+    cfg = dataclasses.replace(get_arch("tleague-policy-s"), param_dtype="bfloat16")
+    opt = adamw(3e-4, clip_norm=1.0, master_fp32=True, inplace=True)
+    step = build_seq_train_step(cfg, opt, loss="vtrace", remat=True)
+    params = init_params(gen, cfg)
+    n_leaves = len(tree_leaves(params))
+    state = opt.init(params)
+    rng = np.random.default_rng(7)
+    B, T = 2, 64
+    batch = {k: torch.from_numpy(v).cuda() for k, v in {
+        "tokens": rng.integers(0, cfg.vocab_size, (B, T)),
+        "actions": rng.integers(0, cfg.vocab_size, (B, T)),
+        "behavior_logp": (-np.abs(rng.normal(size=(B, T))) - 6.0).astype(np.float32),
+        "behavior_values": rng.normal(size=(B, T)).astype(np.float32),
+        "rewards": rng.normal(size=(B, T)).astype(np.float32),
+        "discounts": (0.99 * (rng.random((B, T)) >= 0.01)).astype(np.float32),
+        "bootstrap_value": rng.normal(size=(B,)).astype(np.float32)}.items()}
+    before = (adamw_update.launches, global_norm.launches)
+    dispatch.stats(reset=True)
+    first = tree_map(torch.clone, params)
+    params, state, metrics = step(params, state, batch)
+    st = dispatch.stats(reset=True)
+    assert st.get("adamw|kernel") == 1 and st.get("global_norm|kernel") == 1, st
+    assert not any("|reference" in k for k in st), st
+    assert adamw_update.launches - before[0] == n_leaves
+    assert global_norm.launches - before[1] == n_leaves + 1
+    assert bool(torch.isfinite(metrics["grad_norm"])) and metrics["grad_norm"].item() > 0
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(params), tree_leaves(first)))
+
+
+def test_sharded_update_on_the_card_runs_the_kernels(gen):
+    """DTensor leaves on a (1, 1) NCCL mesh of the card (the sharded steps'
+    layout: one leaf split over 'data', one replicated): the kernels on
+    the local shards, counted on the kernel tier, one update launch a leaf
+    and one norm launch a leaf and its finish; the params, state and norm
+    of the plain tensors' update bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import close_local_mesh, make_local_mesh
+
+    params = {"w": torch.randn(64, 40, generator=gen, device="cuda").to(torch.bfloat16),
+              "b": torch.randn(40, generator=gen, device="cuda").to(torch.bfloat16)}
+    grads = tree_map(lambda p: (3 * torch.randn(p.shape, generator=gen, device="cuda"))
+                     .to(p.dtype), params)
+    opt = adamw(1e-2, clip_norm=1.0, master_fp32=True)
+    want = opt.update(grads, opt.init(params), params)
+    mesh = make_local_mesh()
+    try:
+        place = {"w": [Shard(0), Replicate()], "b": [Replicate(), Replicate()]}
+        dist = lambda tree: {k: distribute_tensor(t, mesh, place[k]) for k, t in tree.items()}
+        state = opt.init(params)
+        dstate = {"step": distribute_tensor(state["step"], mesh, [Replicate(), Replicate()]),
+                  **{k: dist(state[k]) for k in ("mu", "nu", "master")}}
+        before = (adamw_update.launches, global_norm.launches)
+        dispatch.stats(reset=True)
+        got = opt.update(dist(grads), dstate, dist(params))
+        st = dispatch.stats(reset=True)
+        assert st == {"global_norm|kernel": 1, "adamw|kernel": 1}, st
+        assert (adamw_update.launches - before[0], global_norm.launches - before[1]) == (2, 3)
+        whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+        for a, b in zip(tree_leaves(tree_map(whole, got)), tree_leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    finally:
+        close_local_mesh()

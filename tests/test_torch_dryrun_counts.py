@@ -9,7 +9,8 @@ shapes:
 - per-device FLOPs x chips against the unsharded step's, op by op, each
   replicated term named (the value head and the hidden-state norms run
   whole on every model rank; the train step's heads run again in its
-  backward);
+  backward), and the optimizer's on the leaves each rank holds whole or in
+  part;
 - `kernels/cost.py`'s attention FLOPs against `FlopCounterMode`'s count of
   the plain versions;
 - the counting mesh refuses to start over a group that is up, and leaves
@@ -20,13 +21,16 @@ shapes:
 """
 import dataclasses
 import json
+import math
 
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import INPUT_SHAPES, InputShape
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import dryrun
+from repro_torch.launch import specs as SP
 from repro_torch.launch.counters import COLLECTIVES, Counter, collective_bytes
 from repro_torch.launch.mesh import make_counting_mesh
 
@@ -73,6 +77,19 @@ def test_extrapolation_equals_a_direct_count_at_three_units(arch, shape_name, ti
                                          else {"step"})
 
 
+def _axes(spec_dim):
+    return () if spec_dim is None else (spec_dim,) if isinstance(spec_dim, str) else spec_dim
+
+
+def _with_specs(shapes, specs):
+    """(leaf, spec) pairs of a param tree and its spec tree."""
+    if isinstance(shapes, dict):
+        for k in shapes:
+            yield from _with_specs(shapes[k], specs[k])
+    else:
+        yield shapes, specs
+
+
 @pytest.mark.parametrize("shape_name", ["tiny_train", "tiny_prefill", "tiny_decode"])
 def test_per_device_flops_times_chips_names_each_replicated_term(shape_name, tiny_shapes):
     """qwen3-8b smoke on (2, 2): its 4 heads, 2 KV heads, d_ff 512 and
@@ -105,6 +122,17 @@ def test_per_device_flops_times_chips_names_each_replicated_term(shape_name, tin
         assert per["rmsnorm"] - glob["rmsnorm"] == (M - 1) * 2 * hidden_norms \
             + (2 * M - 1) * norm
         assert per["reverse_discounted_scan_p"] == M * glob["reverse_discounted_scan_p"]
+        # AdamW (clip: 15 FLOPs a param) and the norm (2): each rank updates
+        # its shard of every leaf, so a leaf replicated over k ranks counts
+        # k times
+        n_whole = n_mine = 0
+        for t, spec in _with_specs(SP.param_shapes(cfg), SH.param_shardings(
+                SP.param_shapes(cfg), cfg, SH.AbstractMesh((D, M), ("data", "model")))):
+            n_whole += t.numel()
+            n_mine += math.prod(-(-size // math.prod({"data": D, "model": M}[a] for a in axes))
+                                for size, axes in zip(t.shape, map(_axes, spec)))
+        assert per["adamw"] - glob["adamw"] == 15 * (D * M * n_mine - n_whole)
+        assert per["global_norm"] - glob["global_norm"] == 2 * (D * M * n_mine - n_whole)
     else:
         assert per["aten.mm"] - glob["aten.mm"] == (M - 1) * vh
         assert per["rmsnorm"] - glob["rmsnorm"] == (M - 1) * (hidden_norms + norm)
@@ -245,7 +273,6 @@ def _counts(result):
 
 def _real_worker(rank, world, store, shape, out):
     _init(rank, world, store)
-    from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_dryrun_step
     INPUT_SHAPES.update(TINY)

@@ -104,9 +104,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu", "reverse_scan.cu"} <= names
+    assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu", "reverse_scan.cu",
+            "adamw.cu"} <= names
     assert set(_build.SIGNATURES) == {"rmsnorm_fwd", "flash_fwd", "flash_bwd_dq",
-                                      "flash_bwd_dkv", "reverse_scan"}
+                                      "flash_bwd_dkv", "reverse_scan", "adamw_update",
+                                      "global_norm_sumsq", "global_norm_finish"}
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
 
 

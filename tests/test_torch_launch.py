@@ -96,7 +96,8 @@ def test_run_multiprocess_cpu_clean_shutdown(monkeypatch, capfd):
     for ln in lines:
         k = ln["kernels"]
         assert set(k["launches"]) == {"rmsnorm", "flash_attention_fwd", "flash_attention_bwd_dq",
-                                      "flash_attention_bwd_dkv", "reverse_discounted_scan_p"}
+                                      "flash_attention_bwd_dkv", "reverse_discounted_scan_p",
+                                      "adamw_update", "global_norm"}
         assert sum(k["launches"].values()) == 0 and k["peak_cuda_bytes"] is None  # plain versions
         assert not any("|kernel" in t for t in k["dispatch"])
         if ln["process"] == "learner":

@@ -208,8 +208,8 @@ def test_adamw_in_place_equals_the_functional_update(kw, monkeypatch):
     the functional update's numbers bit for bit; slices are made small
     here, so every leaf but the scalar is updated in several, the one
     whose first axis is a stack of one layer too."""
-    import repro_torch.optim.optimizers as optimizers
-    monkeypatch.setattr(optimizers, "_SLICE_ELEMS", 8)
+    import repro_torch.kernels.adamw.ops as adamw_ops
+    monkeypatch.setattr(adamw_ops, "_SLICE_ELEMS", 8)
     dtype = torch.bfloat16 if kw.get("master_fp32") else torch.float32
     gen = torch.Generator().manual_seed(31)
     params = {"a": torch.randn(7, 5, generator=gen).to(dtype),
