@@ -147,6 +147,13 @@ drives the port's paths on the card:
   missing case fails the run. Each rank's launches are the kernel line's
   `mesh_split` path.
 
+- latent attention (the `mla` phase, after the families' train steps):
+  the (192, 128) flash kernels (q and k 192 wide, v 128) at the benchmark
+  cell's shape against their plain versions one head at a time, timed,
+  and kimi-k2-instruct's train step at the cell's stage (6 layers, 8 of
+  384 experts held, 1 x 8192 tokens, V-trace, remat), whose launches are
+  those kernels' rows of the kernel line.
+
 Phase 3 and 3b also hold the flash kernels at head dim 80 (hubert's train
 shape in bf16, the fp32 regime at T = 1,024), the forward at G = 12
 (mistral's prefill), RMSNorm at d = 12,288 and the backward at G = 16, 8
@@ -313,6 +320,20 @@ SLOW_CALL_S, SLOW_CALLS = 0.05, 5
 # the optimizer's kernels (csrc/adamw.cu) replace no TPU kernel; timed at the
 # learner cells' largest leaf, mistral-large's stacked FFN weight at 2 layers
 OPT_LEAF = 2 * 12288 * 28672
+# latent attention's kernels (q and k 192 wide, v 128) and the train step
+# that runs them: kimi-k2-instruct at the benchmark cell's stage (6 of 61
+# layers, 8 of 384 experts held, 20,480 of 163,840 vocabulary rows) on one
+# 1 x 8192-token unroll; the kernels at that step's attention shape
+MLA_LAYERS, MLA_HELD, MLA_VOCAB, MLA_T = 6, 8, 20480, 8192
+MLA_STEPS = 3                                  # timed, after one warm-up step
+MLA_KERNELS = {  # the kernel line's row -> (wrapper, CUDA source)
+    "flash_fwd_bf16_dv<192, 128>": ("flash_attention_fwd",
+                                    "src/repro_torch/kernels/csrc/flash_fwd.cu"),
+    "bwd_dq_bf16_dv<192, 128>": ("flash_attention_bwd_dq",
+                                 "src/repro_torch/kernels/csrc/flash_bwd.cu"),
+    "bwd_dkv_bf16_dv<192, 128>": ("flash_attention_bwd_dkv",
+                                  "src/repro_torch/kernels/csrc/flash_bwd.cu"),
+}
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -3462,6 +3483,187 @@ def mesh_split_phase(smi, names, holds):
     return total, ranks, {"seconds": seconds, "cases": {n: cases[n] for n in MESH_SPLIT_CASES}}
 
 
+def mla_phase(dev, counters, smi, device_ms, bound):
+    """Latent attention on the card: its three (192, 128) kernels at the
+    benchmark cell's shape, and the train step that launches them.
+
+    - the forward, dq and dk/dv kernels at (1, 64/64, MLA_T) in bf16,
+      causal, q and k 192 wide, v 128 as the model lays them out (v a slice
+      of the (B, T, H, 256) k_nope | v projection), at the model's softmax
+      scale: held against the plain versions run one head at a time (one
+      head's fp32 (T, T) scores take 268 MB, all 64 heads' 17 GB) at the
+      D = 128 bf16 tolerances (TOL, BWD_TOL: errors of max(1, max |plain|)
+      over all heads), finite, in their layouts and bitwise deterministic; timed (`device_ms`) against that per-head plain loop,
+      their bound and SDPA (which takes v narrower than q: its forward,
+      and its whole backward for both backward rows);
+    - kimi-k2-instruct's train step at the cell's stage
+      (build_seq_train_step: V-trace, remat; adamw(3e-4, clip_norm=1.0,
+      master_fp32), in place) on one seeded 1 x MLA_T unroll: from zeroed
+      counters, one warm-up and MLA_STEPS timed steps each launch exactly
+      per layer two flash forwards (the forward and its remat recompute),
+      one dq and one dk/dv, all at (192, 128), 8 RMSNorms a layer (the
+      block's two and the two latent norms, twice) and the final one, one
+      scan, and the optimizer's launches; a finite loss and finite grads.
+
+    Returns (launch totals, {kernel row: its record}, the step's record)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_grads_ref,
+        attention_bwd_ref,
+        attention_fwd_ref,
+    )
+    from repro_torch.learners import build_seq_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import mla_scale
+    from repro_torch.optim import adamw
+    from repro_torch.rl.vtrace_loss import VTraceConfig
+    from repro_torch.utils import tree_leaves
+
+    t_phase = time.perf_counter()
+    base = get_arch("kimi-k2-instruct")
+    cfg = dataclasses.replace(base, num_layers=MLA_LAYERS, vocab_size=MLA_VOCAB,
+                              moe=dataclasses.replace(base.moe, num_experts=MLA_HELD))
+    m, H, T = cfg.mla, cfg.num_heads, MLA_T
+    dqk, dv = m.qk_head_dim, m.v_head_dim
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def make(width):
+        return torch.randn(1, T, H, width, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, kv, do = make(dqk), make(dqk), make(m.qk_nope_head_dim + dv), make(dv)
+    v = kv[..., m.qk_nope_head_dim:]
+    q, k, v, do = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(scale=mla_scale(cfg), causal=True)
+    heads = [slice(h, h + 1) for h in range(H)]
+
+    def per_head(fn, *ts):
+        """fn on each head's slice of the (B, H, T, .) tensors ts, in turn."""
+        return [fn(*(t[:, h] for t in ts)) for h in heads]
+
+    def gap(got, wants):
+        """max |got - want| over every head, got (B, H, ...) and wants its
+        heads' plain results in turn."""
+        return max((got[:, h].float() - w.float()).abs().max().item()
+                   for h, w in zip(heads, wants))
+
+    def rel(got, wants):
+        """`gap` over max(1, max |want|) of every head."""
+        return gap(got, wants) / max(1.0, max(w.float().abs().max().item() for w in wants))
+
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    ref = per_head(lambda *a: attention_fwd_ref(*a, **kw), q, k, v)
+    fwd_err = max(gap(o, [r[0] for r in ref]), gap(lse, [r[1] for r in ref]))
+    del ref
+
+    def backward():
+        dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+        return (delta, dq) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+    got = backward()
+    plain = per_head(lambda *a: attention_bwd_ref(*a, **kw), q, k, v, o, lse, do)
+    errs = {n: rel(g, [p[i] for p in plain])
+            for i, (n, g) in enumerate(zip(("delta", "dq", "dk", "dv"), got))}
+    del plain
+    tol = {"flash_fwd_bf16_dv<192, 128>": TOL["bfloat16"],
+           "bwd_dq_bf16_dv<192, 128>": BWD_TOL["bfloat16"],
+           "bwd_dkv_bf16_dv<192, 128>": BWD_TOL["bfloat16"]}
+    err = {"flash_fwd_bf16_dv<192, 128>": fwd_err, "bwd_dq_bf16_dv<192, 128>": errs["dq"],
+           "bwd_dkv_bf16_dv<192, 128>": max(errs["dk"], errs["dv"])}
+    for name, e in err.items():
+        check(e <= tol[name], f"mla {name}: err {e} > {tol[name]}")
+    check(errs["delta"] <= BWD_TOL["float32"],
+          f"mla delta: err {errs['delta']} > {BWD_TOL['float32']}")
+    check(finite(o, lse, *got), "mla kernels: non-finite outputs")
+    # o, dq and dk in q's and k's layouts; dv dense in v's order of axes
+    # (B, T, H, dv), since v is a slice of the k_nope | v projection
+    check(o.shape == (1, H, T, dv) and o.transpose(1, 2).is_contiguous()
+          and got[1].stride() == q.stride() and got[2].stride() == k.stride()
+          and got[3].shape == v.shape and got[3].transpose(1, 2).is_contiguous(),
+          "mla kernels: outputs not in their layouts")
+    check(all(torch.equal(a, b) for a, b in zip(got, backward())),
+          "mla kernels: two identical backward calls differ")
+    delta = got[0]
+    del got
+
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=kw["scale"])
+    sdpa_bwd_ms = device_ms(lambda: torch.autograd.grad(ol, (qs, ks, vs), do,
+                                                        retain_graph=True))
+    calls = {  # row -> (kernel, plain loop, library, work)
+        "flash_fwd_bf16_dv<192, 128>": (
+            lambda: flash_attention_fwd(q, k, v, **kw),
+            lambda: per_head(lambda *a: attention_fwd_ref(*a, **kw), q, k, v),
+            device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              scale=kw["scale"])),
+            cost.attention_fwd(q, k, v, causal=True)),
+        "bwd_dq_bf16_dv<192, 128>": (
+            lambda: flash_attention_bwd_dq(q, k, v, o, do, lse, **kw),
+            lambda: per_head(lambda *a: attention_bwd_ref(*a, **kw)[:2], q, k, v, o, lse, do),
+            sdpa_bwd_ms, cost.attention_bwd_dq(q, k, v, o, do, lse, causal=True)),
+        "bwd_dkv_bf16_dv<192, 128>": (
+            lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: per_head(lambda *a: attention_bwd_grads_ref(*a, **kw), q, k, v, do,
+                             lse, delta),
+            sdpa_bwd_ms, cost.attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))}
+    rows = {}
+    for name, (kernel, plain_fn, library_ms, work) in calls.items():
+        b_ms, b_by = bound(work, "bfloat16")
+        rows[name] = dict(shape=[1, H, H, T, T, dqk, dv], strided=True, dtype="bfloat16",
+                          causal=True, scale=kw["scale"], label="kimi-k2-instruct train, MLA",
+                          max_abs_err=err[name], tol=tol[name], ms=device_ms(kernel),
+                          plain_ms=device_ms(plain_fn, plain=True), library_ms=library_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        if name == "bwd_dq_bf16_dv<192, 128>":
+            rows[name]["note"] = "writes delta in its prologue; delta err " + str(errs["delta"])
+        emit("kernel", name=name, **rows[name])
+    del q, k, kv, v, do, o, lse, delta, qs, ks, vs, ol
+    torch.cuda.empty_cache()
+
+    names = [c.__name__ for c in counters]
+    total = dict.fromkeys(names, 0)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=dev).manual_seed(32), cfg)
+    L = cfg.num_layers
+    per_step = {"rmsnorm": 8 * L + 1, "flash_attention_fwd": 2 * L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "reverse_discounted_scan_p": 1, **optimizer_launches(params)}
+    batch = seq_batch(np.random.default_rng(31), T, cfg.vocab_size, dev)
+    opt = adamw(3e-4, clip_norm=1.0, master_fp32=True, inplace=True)
+    step = build_seq_train_step(cfg, with_grads(opt), hp=VTraceConfig(), loss="vtrace",
+                                remat=True)
+    state = opt.init(params)
+    ms_each, losses = [], []
+    for i in range(1 + MLA_STEPS):
+        ms, (params, state, met) = counted_run(
+            counters, total, lambda: sync_wall(lambda: step(params, state, batch)), per_step,
+            f"mla train step {i}")
+        check(all(bool(g.isfinite().all()) for g in tree_leaves(met.pop("grads"))),
+              f"mla train step {i}: non-finite grads")
+        losses.append(float(met["loss"]))
+        check(bool(np.isfinite(losses[-1])), f"mla train step {i}: loss {losses[-1]}")
+        ms_each.append(ms)
+    train = {"arch": cfg.name, "layers": L, "experts_held": MLA_HELD,
+             "router_experts": cfg.router_experts, "vocab": cfg.vocab_size, "batch": [1, T],
+             "params": sum(t.numel() for t in tree_leaves(params)),
+             "launches_per_step": per_step, "step_ms": ms_each[1:],
+             "step_ms_median": statistics.median(ms_each[1:]), "losses": losses,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, state, batch, step, met
+    torch.cuda.empty_cache()
+    emit("mla_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total,
+         kernels=rows, train=train)
+    return total, rows, train
+
+
 def main() -> int:
     import torch
 
@@ -4370,6 +4572,9 @@ def main() -> int:
         if name != "flash_attention_bwd_preprocess":
             check(launches["train_families"][name] > 0,
                   f"{name} was never launched on the train_families path")
+    # latent attention: its (192, 128) kernels and kimi-k2-instruct's train step
+    launches["mla"], mla_rows, mla_train = mla_phase(dev, counters, smi, device_ms, bound)
+    lap("mla")
 
     # -- 14. the mesh: a (1, 1) DeviceMesh of this card ---------------------------
     launches["mesh"], mesh_out = mesh_phase(dev, counters, smi, per_forward, holds)
@@ -4415,7 +4620,9 @@ def main() -> int:
                        "mesh_train_step_qwen3-8b": mesh_out["train"]["launches_per_step"].get(
                            name, 0),
                        f"mesh_prefill_{MESH_DECODE_ARCH}":
-                           mesh_out["decode"]["launches_per_prefill"].get(name, 0)}
+                           mesh_out["decode"]["launches_per_prefill"].get(name, 0),
+                       "train_step_kimi-k2-instruct.l6": mla_train["launches_per_step"].get(
+                           name, 0)}
                 for name in (*SOURCES, "adamw_update", "global_norm")}
     for arch, key in (("tleague-policy-s", "flush_policy_s"),
                       ("tleague-policy-m", "flush_policy_m")):
@@ -4445,6 +4652,19 @@ def main() -> int:
                         "replaces": None, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "launches_per_unit": per_unit[name],
                         **{key: optimizer[name][key] for key in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "shape", "dtype")}})
+    # latent attention's kernels, which replace no TPU kernel (the JAX
+    # package has no latent attention): only the mla path's train steps
+    # launch them, since no other path runs a model with v narrower than q
+    for name, (wrapper, src) in MLA_KERNELS.items():
+        n = launches["mla"][wrapper]
+        kernels.append({"name": name, "wrapper": wrapper, "route": "cuda", "source": src,
+                        **({"note": mla_rows[name]["note"]} if "note" in mla_rows[name] else {}),
+                        "replaces": None, "launches": n, "launches_by_path": {"mla": n},
+                        "launches_per_unit": {"train_step_kimi-k2-instruct.l6":
+                                              mla_train["launches_per_step"][wrapper]},
+                        **{key: mla_rows[name][key] for key in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                             "shape", "dtype")}})
     # a short digest first, so a log that keeps only the tail still has it:
@@ -4485,6 +4705,8 @@ def main() -> int:
          train_families={a: [round(v["step_ms_median"], 3), v["losses"][0], v["losses"][-1],
                              v["card_vs_cpu"]["max_err"]["grads"]]
                          for a, v in train_families_out.items()},
+         mla=[round(mla_train["step_ms_median"], 3), round(mla_train["peak_gb"], 2),
+              {n: [r["ms"], r["bound_ms"]] for n, r in mla_rows.items()}],
          mesh={"flush_ms": {k: round(v, 3) for k, v in mesh_out["serve"]["flush_ms_median"].items()},
                "train_step_ms": round(mesh_out["train"]["step_ms_median"], 3),
                "train_peak_mb": round(mesh_out["train"]["peak_mb"]),

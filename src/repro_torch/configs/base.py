@@ -25,6 +25,53 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class RouterConfig:
+    """DeepSeek-V3's sigmoid router (`scoring_func` sigmoid, `topk_method`
+    noaux_tc, one group). Without one (`ArchConfig.router` None) the router
+    is a softmax over the experts, its top-k renormalised, with Switch's
+    load-balance term.
+
+    The choice is the top-k of sigmoid(x W) + b, b a correction bias that
+    picks the experts and weighs none; the weights are the chosen scores,
+    renormalised, times `routed_scaling_factor`; the balance term is the
+    sequence-wise one (its `seq_aux`). `experts` is the router's width, all
+    the experts of the layer, of which `MoEConfig.num_experts` are held
+    here: the first ones, the share of rank 0 of an expert-parallel layer."""
+    routed_scaling_factor: float
+    experts: int
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3): q from a low-rank
+    latent of `q_lora_rank`, k's and v's per-head parts from a shared
+    latent of `kv_lora_rank`, each latent RMS-normed; each head's q and k
+    are `qk_nope_head_dim` columns without rotary embeddings and
+    `qk_rope_head_dim` with them, k's rotary part one for all heads; v's
+    heads are `v_head_dim` wide."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class YarnScaling:
+    """YaRN's rotary scaling (`rope_scaling` of type 'yarn')."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     kind: str = "rwkv6"               # 'rwkv6' | 'mamba'
     head_size: int = 64               # rwkv6 per-head dim
@@ -58,8 +105,19 @@ class ArchConfig:
     sliding_window: int = 0           # 0 = full attention
     layer_pattern: Tuple[str, ...] = ("global",)  # repeat unit, e.g. ("local","global")
 
+    # latent attention's sizes, where the model has it in place of GQA (then
+    # head_dim is q's and k's width per head, and num_kv_heads = num_heads)
+    mla: Optional[MLAConfig] = None
+    rope_scaling: Optional[YarnScaling] = None
+
     # families
     moe: Optional[MoEConfig] = None
+    router: Optional[RouterConfig] = None
+    # the shared experts' hidden width, all of them together; 0: d_ff times
+    # their number, the JAX package's rule (its configs give d_ff the
+    # experts' width where they have shared ones). The published rule,
+    # moe_intermediate_size times their number, is set here.
+    d_ff_shared: int = 0
     ssm: Optional[SSMConfig] = None
     encoder_only: bool = False        # hubert: bidirectional, no decode step
     frontend: Optional[str] = None    # 'audio'|'vision': embeddings provided by stub
@@ -114,19 +172,44 @@ class ArchConfig:
             per_layer += heads * self.ssm.head_size * 2
             per_layer += d * self.d_ff * 2          # rwkv channel-mix
         else:
-            per_layer += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            per_layer += self.attn_param_count()
             if self.family == "hybrid" and self.ssm:
                 di = self.ssm.expand * d
                 per_layer += d * 2 * di + di * d + di * (2 * self.ssm.state_size + 32)
             if self.moe is not None:
                 e = self.moe
                 moe_ff = 3 * d * e.d_ff_expert if self.mlp_gated else 2 * d * e.d_ff_expert
-                per_layer += e.num_experts * moe_ff + d * e.num_experts
-                per_layer += e.num_shared_experts * 3 * d * self.d_ff
+                per_layer += e.num_experts * moe_ff + d * self.router_experts
+                per_layer += 3 * d * self.shared_ff
             else:
                 per_layer += (3 if self.mlp_gated else 2) * d * self.d_ff
         n += L * per_layer
         return n
+
+    @property
+    def shared_ff(self) -> int:
+        """The shared experts' hidden width, all of them together."""
+        if self.moe is None:
+            return 0
+        return self.d_ff_shared or self.d_ff * self.moe.num_shared_experts
+
+    @property
+    def router_experts(self) -> int:
+        """The router's width: every expert of an MoE layer, held or not."""
+        if self.router is not None:
+            return self.router.experts
+        return self.moe.num_experts if self.moe else 0
+
+    def attn_param_count(self) -> int:
+        """One layer's attention projections."""
+        d = self.d_model
+        if self.mla is not None:
+            m, H = self.mla, self.num_heads
+            return (d * m.q_lora_rank + m.q_lora_rank * H * m.qk_head_dim
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                    + H * m.v_head_dim * d)
+        return d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
 
     def active_param_count(self) -> int:
         """Active params per token (MoE top-k instead of all experts)."""
@@ -169,6 +252,14 @@ class ArchConfig:
             )
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, head_size=32, lora_rank=16)
+        if self.mla is not None:
+            kw.update(mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                                    qk_rope_head_dim=16, v_head_dim=32),
+                      num_kv_heads=heads, head_dim=48)
+        if self.router is not None:
+            kw["router"] = replace(self.router, experts=4)
+        if self.d_ff_shared:
+            kw["d_ff_shared"] = 128 * kw["moe"].num_shared_experts
         return replace(self, **kw)
 
 

@@ -1,6 +1,12 @@
 """kimi-k2-1t-a32b [moe] — 61L d_model=7168 64H (GQA kv=8) d_ff=2048
 vocab=163840, MoE 384 experts top-8, 1 shared expert, first layer dense.
-[arXiv:2501.kimi2 — trillion-param MoE, paper-table entry]"""
+
+The JAX package's stand-in for Kimi K2, from its assignment table, and
+held against it field by field: GQA where the published model has latent
+attention, the dense layer at the experts' width 2048 where it is 18432,
+softmax routing where the published router is sigmoid with a correction
+bias and a scaling factor, and a citation that names no published source.
+The published architecture is `kimi-k2-instruct`."""
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ArchConfig, MoEConfig
 

@@ -670,7 +670,7 @@ class _Params:
             KV = cfg.num_kv_heads
             return (-1, M, m) if KV % M == 0 else (-1, KV, m // (M // KV))
         if ("mlp" in parts or "shared" in parts) and parts[-2] in ("up", "gate", "down"):
-            ff = cfg.d_ff * (cfg.moe.num_shared_experts if "shared" in parts else 1)
+            ff = cfg.shared_ff if "shared" in parts else cfg.d_ff
             if ff % M:
                 return None
             if parts[-2] != "down":

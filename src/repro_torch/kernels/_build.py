@@ -42,17 +42,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     # x, w, y, rows, d, rows_per_weight, eps, x_is_bf16, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, lse, B, H, KV, Tq, Tk, D,
+    # q, k, v, o, lse, B, H, KV, Tq, Tk, D (q's and k's), DV (v's and o's),
     # q/k/v/o strides (batch, head, time) in elements,
     # scale, causal, window, cap, kv_len, is_bf16, mixed, stream
-    "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+    "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
                  + [_I] * 12 + [_F, _I, _I, _F, _I, _I, _I, _P],
-    # q, k, v, o, dO, lse, delta (written), dq, B, H, KV, Tq, Tk, D,
+    # q, k, v, o, dO, lse, delta (written), dq, B, H, KV, Tq, Tk, D, DV,
     # q/k/v/o/dO/dq strides, scale, causal, window, cap, kv_len, is_bf16, stream
-    "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, B, H, KV, Tq, Tk, D,
+    "flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, KV, Tq, Tk, D, DV,
     # q/k/v/dO/dk/dv strides, scale, causal, window, cap, kv_len, is_bf16, stream
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
     # deltas, decays, init, y, B, T, is_bf16, stream
     "reverse_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
     # g, m, v, base, m_out, v_out, master_out, p_out, n, scale, lr, bc1, bc2,

@@ -13,10 +13,11 @@ from here. Each function takes the wrapper's own arguments and returns
     2, AdamW 14 (the moments 7; u: three divisions, a square root and
     eps; lr times u and the subtraction), one more with the clip and two
     more with weight decay; attention counts the live
-    (q, k) pairs that the causal, window and `kv_len` masks leave: the
-    forward 4·d per pair, dq 6·d per pair (the recomputed scores, dP, dQ)
-    plus 2·d per row for the delta prologue, dk/dv 8·d per pair (scores,
-    dP, dV, dK).
+    (q, k) pairs that the causal, window and `kv_len` masks leave, with q's
+    and k's width d and v's dv (d but for latent attention): the forward
+    2·(d + dv) per pair, dq 2·(2·d + dv) per pair (the recomputed scores,
+    dP, dQ) plus 2·dv per row for the delta prologue, dk/dv 4·(d + dv) per
+    pair (scores, dP, dV, dK).
 
 `counted(name, work)` marks a kernel wrapper for the counter: while a
 listener is registered, each call adds one unit of `work(*args, **kw)`
@@ -66,11 +67,12 @@ def _attn(q, k, causal, window, kv_len):
 
 
 def attention_fwd(q, k, v, *, causal=True, window=0, kv_len=None, **_) -> Work:
-    """(B, H, Tq, d) q, (B, KV, Tk, d) k and v; o in q's dtype, lse fp32."""
+    """(B, H, Tq, d) q, (B, KV, Tk, d) k, (B, KV, Tk, dv) v; o (B, H, Tq,
+    dv) in q's dtype, lse fp32."""
     bh, Tq, d, live = _attn(q, k, causal, window, kv_len)
-    esz = q.element_size()
-    return Work(4 * d * bh * live,
-                (2 * q.numel() + k.numel() + v.numel()) * esz + bh * Tq * 4)
+    dv, esz = v.shape[3], q.element_size()
+    return Work(2 * (d + dv) * bh * live,
+                (q.numel() + bh * Tq * dv + k.numel() + v.numel()) * esz + bh * Tq * 4)
 
 
 def attention_bwd_preprocess(o, *_, **__) -> Work:
@@ -82,8 +84,8 @@ def attention_bwd_preprocess(o, *_, **__) -> Work:
 def attention_bwd_dq(q, k, v, o, do, lse, *, causal=True, window=0, kv_len=None,
                      **_) -> Work:
     bh, Tq, d, live = _attn(q, k, causal, window, kv_len)
-    esz = q.element_size()
-    return Work(6 * d * bh * live + 2 * d * bh * Tq,
+    dv, esz = v.shape[3], q.element_size()
+    return Work(2 * (2 * d + dv) * bh * live + 2 * dv * bh * Tq,
                 (2 * q.numel() + k.numel() + v.numel() + o.numel() + do.numel()) * esz
                 + 2 * lse.numel() * 4)
 
@@ -91,8 +93,8 @@ def attention_bwd_dq(q, k, v, o, do, lse, *, causal=True, window=0, kv_len=None,
 def attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, kv_len=None,
                       **_) -> Work:
     bh, Tq, d, live = _attn(q, k, causal, window, kv_len)
-    esz = q.element_size()
-    return Work(8 * d * bh * live,
+    dv, esz = v.shape[3], q.element_size()
+    return Work(4 * (d + dv) * bh * live,
                 (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) * esz
                 + 2 * lse.numel() * 4)
 

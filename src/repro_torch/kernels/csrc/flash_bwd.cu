@@ -47,6 +47,17 @@
 //   time) strides, so the model's (B, T, H, d) layout needs no transpose
 //   copy. Tiles load with 16-byte cp.async: rows and base pointers must be
 //   16-byte aligned (the wrapper checks).
+// - Latent attention (DeepSeek-V3's MLA, Kimi K2's) has q and k 192 wide
+//   and v 128: bwd_dq_bf16_dv<192, 128> and bwd_dkv_bf16_dv<192, 128> are
+//   the bf16 kernels' bodies with every tile at its own width and pitch
+//   (S and dK over 192 columns, dP, dV and delta over 128), nothing padded
+//   to 256. The tiling is the D = 128 kernels': dq's 64 rows x 32 keys in
+//   halves of 16 (96 dq accumulators a lane), dk/dv's 32 keys x 32-row q
+//   tiles (160 dk and dv accumulators); at H = KV = 64, T = 8192 that is
+//   128 x 64 and 256 x 64 blocks, enough to fill the card without larger
+//   tiles, whose accumulators would not fit beside the S fragments. The
+//   D == DV instantiations keep their loops as they were (`if constexpr`),
+//   so their code is unchanged. No fp32 regime at these widths.
 #include "common.cuh"
 
 namespace {
@@ -99,8 +110,9 @@ __device__ __forceinline__ bool pair_live(int qpos, int j, int kv_end, const Bwd
   return live;
 }
 
-// KV tile kt (BN keys) of K and V into shared memory (zeros past Tk).
-template <typename T, int D, int BN, int LD, int THREADS>
+// KV tile kt (BN keys) of K and V into shared memory (zeros past Tk); V
+// DV wide at pitch LDV.
+template <typename T, int D, int BN, int LD, int THREADS, int DV = D, int LDV = LD>
 __device__ __forceinline__ void stage_kv_tile(const BwdParams& p, int b, int kvh, int kt,
                                               T* Kd, T* Vd) {
   const T* kb = static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh;
@@ -110,7 +122,7 @@ __device__ __forceinline__ void stage_kv_tile(const BwdParams& p, int b, int kvh
   repro::stage_rows<T, D, BN, LD, THREADS>(Kd, [=](int i) -> const T* {
     return k0 + i < Tk ? kb + (k0 + i) * skt : nullptr;
   });
-  repro::stage_rows<T, D, BN, LD, THREADS>(Vd, [=](int i) -> const T* {
+  repro::stage_rows<T, DV, BN, LDV, THREADS>(Vd, [=](int i) -> const T* {
     return k0 + i < Tk ? vb + (k0 + i) * svt : nullptr;
   });
 }
@@ -196,8 +208,9 @@ __device__ __forceinline__ void row_deltas(const BwdParams& p, int b, int kvh, i
   }
 }
 
-// Stage stacked rows [r0, r0 + BM) of q, dO and o (zeros past the end).
-template <typename T, int D, int BM, int LD, int THREADS>
+// Stage stacked rows [r0, r0 + BM) of q, dO and o (zeros past the end);
+// dO and o DV wide at pitch LDV.
+template <typename T, int D, int BM, int LD, int THREADS, int DV = D, int LDV = LD>
 __device__ __forceinline__ void stage_q_rows(const BwdParams& p, int b, int kvh, int r0,
                                              T* Qs, T* dOs, T* Os) {
   const int G = p.H / p.KV, R = G * p.Tq;
@@ -209,8 +222,8 @@ __device__ __forceinline__ void stage_q_rows(const BwdParams& p, int b, int kvh,
     };
   };
   repro::stage_rows<T, D, BM, LD, THREADS>(Qs, rows(p.q, p.sqb, p.sqh, p.sqt));
-  repro::stage_rows<T, D, BM, LD, THREADS>(dOs, rows(p.dout, p.sdob, p.sdoh, p.sdot));
-  repro::stage_rows<T, D, BM, LD, THREADS>(Os, rows(p.o, p.sob, p.soh, p.sot));
+  repro::stage_rows<T, DV, BM, LDV, THREADS>(dOs, rows(p.dout, p.sdob, p.sdoh, p.sdot));
+  repro::stage_rows<T, DV, BM, LDV, THREADS>(Os, rows(p.o, p.sob, p.soh, p.sot));
 }
 
 // bf16 inputs: tensor cores. 4 warps of 16 stacked rows (64 rows: the env
@@ -225,38 +238,43 @@ __device__ __forceinline__ void stage_q_rows(const BwdParams& p, int b, int kvh,
 // waves). A warp skips a tile in which none of its rows has a live key.
 constexpr int kDqBf16Threads = 128;
 
-template <int D> struct DqBf16 {
+// q and k are D wide, dO, o and v DV (D == DV but for latent attention's
+// (192, 128)); each tile is staged at its own pitch.
+template <int D, int DV = D> struct DqBf16 {
   static constexpr int BM = 64, BN = 32, LD = D + 8;  // 16*odd-byte pitch: ldmatrix conflict-free
-  static constexpr int smem = (2 * BM + 4 * BN) * LD * 2 + BM * 4;
+  static constexpr int LDV = DV + 8;
+  static constexpr int KV = BN * (LD + LDV);          // one K/V buffer
+  static constexpr int smem = (BM * (LD + LDV) + 2 * KV) * 2 + BM * 4;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p) {
+template <int D, int DV>
+__device__ __forceinline__ void dq_bf16(const BwdParams& p) {
   using T = __nv_bfloat16;
   constexpr int THREADS = kDqBf16Threads;
-  constexpr int BM = DqBf16<D>::BM, BN = DqBf16<D>::BN, LD = DqBf16<D>::LD;
+  constexpr int BM = DqBf16<D, DV>::BM, BN = DqBf16<D, DV>::BN, LD = DqBf16<D, DV>::LD;
+  constexpr int LDV = DqBf16<D, DV>::LDV, KVB = DqBf16<D, DV>::KV;
   constexpr int DT = D / 8;   // dq n-tiles per warp
-  static_assert(D % 16 == 0, "k-steps of 16 columns; n-tiles taken in pairs");
+  static_assert(D % 16 == 0 && DV % 16 == 0, "k-steps of 16 columns; n-tiles taken in pairs");
   extern __shared__ float4 smem4[];
-  static_assert(BM <= 2 * BN, "o is staged in the second K/V buffer");
+  static_assert(BM * LDV <= KVB, "o is staged in the second K/V buffer");
   T* Qs = reinterpret_cast<T*>(smem4);                     // [BM][LD]
-  T* dOs = Qs + BM * LD;                                   // [BM][LD]
-  T* KVs = dOs + BM * LD;                                  // [2][K, V][BN][LD]; o in [1]
-  float* Ds = reinterpret_cast<float*>(KVs + 4 * BN * LD);  // [BM]
+  T* dOs = Qs + BM * LD;                                   // [BM][LDV]
+  T* KVs = dOs + BM * LDV;                                 // [2][K [BN][LD], V [BN][LDV]]; o in [1]
+  float* Ds = reinterpret_cast<float*>(KVs + 2 * KVB);     // [BM]
 
   const int b = blockIdx.z, kvh = blockIdx.y, r0 = blockIdx.x * BM;
   const int G = p.H / p.KV, R = G * p.Tq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, cq = lane & 3;
 
-  stage_q_rows<T, D, BM, LD, THREADS>(p, b, kvh, r0, Qs, dOs, KVs + 2 * BN * LD);
+  stage_q_rows<T, D, BM, LD, THREADS, DV, LDV>(p, b, kvh, r0, Qs, dOs, KVs + KVB);
   repro::cp_async_commit();
   int lo, hi;
   key_range(p, r0 / G, (min(r0 + BM, R) - 1) / G, lo, hi);
   const int kt_lo = lo / BN, kt_hi = hi > lo ? (hi + BN - 1) / BN : kt_lo;
   auto stage_kv = [&](int kt, int buf) {
-    T* K = KVs + buf * 2 * BN * LD;
-    stage_kv_tile<T, D, BN, LD, THREADS>(p, b, kvh, kt, K, K + BN * LD);
+    T* K = KVs + buf * KVB;
+    stage_kv_tile<T, D, BN, LD, THREADS, DV, LDV>(p, b, kvh, kt, K, K + BN * LD);
   };
   if (kt_lo < kt_hi) stage_kv(kt_lo, 0);
   repro::cp_async_commit();
@@ -273,7 +291,7 @@ __global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p)
 
   repro::cp_async_wait<1>();  // Q, dO and O landed (the first KV tile may not have)
   __syncthreads();
-  row_deltas<T, D, BM, LD, THREADS>(p, b, kvh, r0, KVs + 2 * BN * LD, dOs, Ds);
+  row_deltas<T, DV, BM, LDV, THREADS>(p, b, kvh, r0, KVs + KVB, dOs, Ds);
   __syncthreads();  // delta is in Ds; O's buffer is free for KV tile kt_lo + 1
   const float delta_a = Ds[warp * 16 + gq], delta_b = Ds[warp * 16 + gq + 8];
 
@@ -289,7 +307,7 @@ __global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p)
     repro::cp_async_commit();
     const int k0 = kt * BN;
     if (k0 >= whi || k0 + BN <= wlo) continue;  // warp-uniform: no live key for these rows
-    const T* Kt = KVs + buf * 2 * BN * LD;
+    const T* Kt = KVs + buf * KVB;
     const T* Vt = Kt + BN * LD;
 
     // two halves of 16 keys, one after the other: half the S and dP
@@ -301,21 +319,44 @@ __global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p)
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      // fragment offsets of k-step kk at pitch ld: A rows of this warp, B keys of this half
+      const auto a_at = [&](int kk, int ld) {
+        return (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk * 16 + (lane >> 4) * 8;
+      };
+      const auto b_at = [&](int kk, int ld) {
+        return (hk * 16 + (lane & 7) + (lane >> 4) * 8) * ld + kk * 16 + ((lane >> 3) & 1) * 8;
+      };
+      if constexpr (D == DV) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16
-                          + (lane >> 4) * 8;
-        const int b_off = (hk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16
-                          + ((lane >> 3) & 1) * 8;
-        unsigned aq[4], ad[4], bk[4], bv[4];
-        repro::ldmatrix_x4(aq, Qs + a_off);
-        repro::ldmatrix_x4(bk, Kt + b_off);
-        repro::mma_bf16(s[0], aq, bk[0], bk[1]);
-        repro::mma_bf16(s[1], aq, bk[2], bk[3]);
-        repro::ldmatrix_x4(ad, dOs + a_off);
-        repro::ldmatrix_x4(bv, Vt + b_off);
-        repro::mma_bf16(dp[0], ad, bv[0], bv[1]);
-        repro::mma_bf16(dp[1], ad, bv[2], bv[3]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a_off = a_at(kk, LD), b_off = b_at(kk, LD);
+          unsigned aq[4], ad[4], bk[4], bv[4];
+          repro::ldmatrix_x4(aq, Qs + a_off);
+          repro::ldmatrix_x4(bk, Kt + b_off);
+          repro::mma_bf16(s[0], aq, bk[0], bk[1]);
+          repro::mma_bf16(s[1], aq, bk[2], bk[3]);
+          repro::ldmatrix_x4(ad, dOs + a_off);
+          repro::ldmatrix_x4(bv, Vt + b_off);
+          repro::mma_bf16(dp[0], ad, bv[0], bv[1]);
+          repro::mma_bf16(dp[1], ad, bv[2], bv[3]);
+        }
+      } else {  // S over q's and k's D columns, dP over dO's and v's DV
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          unsigned aq[4], bk[4];
+          repro::ldmatrix_x4(aq, Qs + a_at(kk, LD));
+          repro::ldmatrix_x4(bk, Kt + b_at(kk, LD));
+          repro::mma_bf16(s[0], aq, bk[0], bk[1]);
+          repro::mma_bf16(s[1], aq, bk[2], bk[3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk) {
+          unsigned ad[4], bv[4];
+          repro::ldmatrix_x4(ad, dOs + a_at(kk, LDV));
+          repro::ldmatrix_x4(bv, Vt + b_at(kk, LDV));
+          repro::mma_bf16(dp[0], ad, bv[0], bv[1]);
+          repro::mma_bf16(dp[1], ad, bv[2], bv[3]);
+        }
       }
       // element e of n-tile n: row (e < 2 ? ra : rb), key k0 + 16 hk + 8 n + 2 cq + (e & 1)
 #pragma unroll
@@ -361,6 +402,18 @@ __global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p)
       *reinterpret_cast<unsigned*>(qrow + n * 8) =
           repro::pack_bf16(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16(const BwdParams p) {
+  dq_bf16<D, D>(p);
+}
+
+// Latent attention's (192, 128): 12 k-steps for S, 8 for dP, 24 n-tiles of
+// dq (96 accumulators a lane); shared memory 77 KB, 2 blocks an SM.
+template <int D, int DV>
+__global__ void __launch_bounds__(kDqBf16Threads) bwd_dq_bf16_dv(const BwdParams p) {
+  dq_bf16<D, DV>(p);
 }
 
 // fp32 inputs: register-tiled CUDA cores, IEEE fp32. 256 threads on a tile
@@ -580,8 +633,8 @@ __global__ void __launch_bounds__(kDqF32Threads) bwd_dq_f32(const BwdParams p) {
 // is masked.
 
 // Stage stacked q rows [rt0, rt0 + BM) of q and dO, with their lse, delta
-// and positions (-1 past the end), into one buffer.
-template <typename T, int D, int BM, int LD, int THREADS>
+// and positions (-1 past the end), into one buffer; dO DV wide at pitch LDV.
+template <typename T, int D, int BM, int LD, int THREADS, int DV = D, int LDV = LD>
 __device__ __forceinline__ void stage_q_tile(const BwdParams& p, int b, int kvh, int rt0,
                                              T* Qd, T* dOd, float* Ld, float* Dd, int* Td) {
   const int G = p.H / p.KV, R = G * p.Tq;
@@ -592,7 +645,7 @@ __device__ __forceinline__ void stage_q_tile(const BwdParams& p, int b, int kvh,
     const int r = rt0 + i;
     return r < R ? qb + (r % G) * sqh + (r / G) * sqt : nullptr;
   });
-  repro::stage_rows<T, D, BM, LD, THREADS>(dOd, [=](int i) -> const T* {
+  repro::stage_rows<T, DV, BM, LDV, THREADS>(dOd, [=](int i) -> const T* {
     const int r = rt0 + i;
     return r < R ? dob + (r % G) * sdoh + (r / G) * sdot : nullptr;
   });
@@ -631,26 +684,31 @@ __device__ __forceinline__ void query_range(const BwdParams& p, int j0, int n, i
 // MMAs). A warp skips a q tile in which none of its keys has a live query.
 constexpr int kDkvBf16Warps = 2;
 
-template <int D> struct DkvBf16 {
+// q, k and dk are D wide, dO, v and dv DV (D == DV but for latent
+// attention's (192, 128)); each tile is staged at its own pitch.
+template <int D, int DV = D> struct DkvBf16 {
   static constexpr int BN = 16 * kDkvBf16Warps, BM = D <= 64 ? 64 : 32, LD = D + 8;
-  static constexpr int smem = (2 * BN + 4 * BM) * LD * 2 + 2 * 3 * BM * 4;
+  static constexpr int LDV = DV + 8;
+  static constexpr int smem = (BN + 2 * BM) * (LD + LDV) * 2 + 2 * 3 * BM * 4;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdParams p) {
+template <int D, int DV>
+__device__ __forceinline__ void dkv_bf16(const BwdParams& p) {
   using T = __nv_bfloat16;
   constexpr int THREADS = kDkvBf16Warps * 32;
-  constexpr int BN = DkvBf16<D>::BN, BM = DkvBf16<D>::BM, LD = DkvBf16<D>::LD;
+  constexpr int BN = DkvBf16<D, DV>::BN, BM = DkvBf16<D, DV>::BM, LD = DkvBf16<D, DV>::LD;
+  constexpr int LDV = DkvBf16<D, DV>::LDV;
   constexpr int CW = 32;      // columns (stacked q rows) per pass over a staged tile
   constexpr int NT = CW / 8;  // S^T n-tiles per pass
-  constexpr int DT = D / 8;   // dk/dv n-tiles per warp
-  static_assert(D % 16 == 0, "k-steps of 16 columns; n-tiles taken in pairs");
+  constexpr int DT = D / 8;   // dk n-tiles per warp
+  constexpr int DTV = DV / 8;  // dv n-tiles per warp
+  static_assert(D % 16 == 0 && DV % 16 == 0, "k-steps of 16 columns; n-tiles taken in pairs");
   extern __shared__ float4 smem4[];
   T* Ks = reinterpret_cast<T*>(smem4);  // [BN][LD]
-  T* Vs = Ks + BN * LD;                 // [BN][LD]
-  T* Qs = Vs + BN * LD;                 // [2][BM][LD]
-  T* dOs = Qs + 2 * BM * LD;            // [2][BM][LD]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BM * LD);  // [2][BM]
+  T* Vs = Ks + BN * LD;                 // [BN][LDV]
+  T* Qs = Vs + BN * LDV;                // [2][BM][LD]
+  T* dOs = Qs + 2 * BM * LD;            // [2][BM][LDV]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BM * LDV);  // [2][BM]
   float* Ds = Ls + 2 * BM;                                  // [2][BM]
   int* Ts = reinterpret_cast<int*>(Ds + 2 * BM);            // [2][BM]
 
@@ -658,7 +716,7 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
   const int G = p.H / p.KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, cq = lane & 3;
-  stage_kv_tile<T, D, BN, LD, THREADS>(p, b, kvh, blockIdx.x, Ks, Vs);
+  stage_kv_tile<T, D, BN, LD, THREADS, DV, LDV>(p, b, kvh, blockIdx.x, Ks, Vs);
 
   int q_lo, q_hi, wq_lo, wq_hi;
   query_range(p, k0, BN, q_lo, q_hi);
@@ -668,16 +726,20 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
   const int kv_end = min(p.Tk, p.kv_len);
   const int ka = k0 + warp * 16 + gq, kb8 = ka + 8;  // this lane's two keys
 
-  float dk[DT][4], dv[DT][4];
+  float dk[DT][4], dv[DTV][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < DTV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
 
   auto stage = [&](int rt, int buf) {
-    stage_q_tile<T, D, BM, LD, THREADS>(p, b, kvh, rt * BM, Qs + buf * BM * LD,
-                                        dOs + buf * BM * LD, Ls + buf * BM, Ds + buf * BM,
-                                        Ts + buf * BM);
+    stage_q_tile<T, D, BM, LD, THREADS, DV, LDV>(p, b, kvh, rt * BM, Qs + buf * BM * LD,
+                                                 dOs + buf * BM * LDV, Ls + buf * BM,
+                                                 Ds + buf * BM, Ts + buf * BM);
   };
   if (rt_lo < rt_hi) stage(rt_lo, 0);
   repro::cp_async_commit();
@@ -692,7 +754,7 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
       const int rc0 = rt * BM + c0;  // first stacked row of this pass
       if (wq_hi <= wq_lo || (rc0 + CW - 1) / G < wq_lo || rc0 / G >= wq_hi) continue;
       const T* Qt = Qs + buf * BM * LD + c0 * LD;
-      const T* dOt = dOs + buf * BM * LD + c0 * LD;
+      const T* dOt = dOs + buf * BM * LDV + c0 * LDV;
       const float* Lt = Ls + buf * BM + c0;
       const float* Dt = Ds + buf * BM + c0;
       const int* Tt = Ts + buf * BM + c0;
@@ -702,24 +764,57 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+      // fragment offsets of k-step kk at pitch ld: A rows (this warp's
+      // keys), B columns n-tile n (stacked q rows)
+      const auto a_at = [&](int kk, int ld) {
+        return (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk * 16 + (lane >> 4) * 8;
+      };
+      const auto b_at = [&](int n, int kk, int ld) {
+        return (n * 8 + (lane & 7) + (lane >> 4) * 8) * ld + kk * 16 + ((lane >> 3) & 1) * 8;
+      };
+      if constexpr (D == DV) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16
-                          + (lane >> 4) * 8;
-        unsigned ak[4], av[4];
-        repro::ldmatrix_x4(ak, Ks + a_off);
-        repro::ldmatrix_x4(av, Vs + a_off);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a_off = a_at(kk, LD);
+          unsigned ak[4], av[4];
+          repro::ldmatrix_x4(ak, Ks + a_off);
+          repro::ldmatrix_x4(av, Vs + a_off);
 #pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          const int b_off = (n * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16
-                            + ((lane >> 3) & 1) * 8;
-          unsigned bq[4], bd[4];
-          repro::ldmatrix_x4(bq, Qt + b_off);
-          repro::mma_bf16(st[n], ak, bq[0], bq[1]);
-          repro::mma_bf16(st[n + 1], ak, bq[2], bq[3]);
-          repro::ldmatrix_x4(bd, dOt + b_off);
-          repro::mma_bf16(dpt[n], av, bd[0], bd[1]);
-          repro::mma_bf16(dpt[n + 1], av, bd[2], bd[3]);
+          for (int n = 0; n < NT; n += 2) {
+            const int b_off = b_at(n, kk, LD);
+            unsigned bq[4], bd[4];
+            repro::ldmatrix_x4(bq, Qt + b_off);
+            repro::mma_bf16(st[n], ak, bq[0], bq[1]);
+            repro::mma_bf16(st[n + 1], ak, bq[2], bq[3]);
+            repro::ldmatrix_x4(bd, dOt + b_off);
+            repro::mma_bf16(dpt[n], av, bd[0], bd[1]);
+            repro::mma_bf16(dpt[n + 1], av, bd[2], bd[3]);
+          }
+        }
+      } else {  // S^T over k's and q's D columns, dP^T over v's and dO's DV
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          unsigned ak[4];
+          repro::ldmatrix_x4(ak, Ks + a_at(kk, LD));
+#pragma unroll
+          for (int n = 0; n < NT; n += 2) {
+            unsigned bq[4];
+            repro::ldmatrix_x4(bq, Qt + b_at(n, kk, LD));
+            repro::mma_bf16(st[n], ak, bq[0], bq[1]);
+            repro::mma_bf16(st[n + 1], ak, bq[2], bq[3]);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk) {
+          unsigned av[4];
+          repro::ldmatrix_x4(av, Vs + a_at(kk, LDV));
+#pragma unroll
+          for (int n = 0; n < NT; n += 2) {
+            unsigned bd[4];
+            repro::ldmatrix_x4(bd, dOt + b_at(n, kk, LDV));
+            repro::mma_bf16(dpt[n], av, bd[0], bd[1]);
+            repro::mma_bf16(dpt[n + 1], av, bd[2], bd[3]);
+          }
         }
       }
 
@@ -755,21 +850,45 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
           repro::split_bf16(dpt[2 * kq + h][2], dpt[2 * kq + h][3], sh[2 * h + 1],
                             sl[2 * h + 1]);
         }
+        // B fragment offset of n-tile n at pitch ld: rows 16 kq.. of dO or q
+        const auto t_at = [&](int n, int ld) {
+          return (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n * 8 + (lane >> 4) * 8;
+        };
+        if constexpr (D == DV) {
 #pragma unroll
-        for (int n = 0; n < DT; n += 2) {
-          const int b_off = (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n * 8
-                            + (lane >> 4) * 8;
-          unsigned bd[4], bq[4];
-          repro::ldmatrix_x4_trans(bd, dOt + b_off);
-          repro::mma_bf16(dv[n], ph, bd[0], bd[1]);
-          repro::mma_bf16(dv[n + 1], ph, bd[2], bd[3]);
-          repro::mma_bf16(dv[n], pl, bd[0], bd[1]);
-          repro::mma_bf16(dv[n + 1], pl, bd[2], bd[3]);
-          repro::ldmatrix_x4_trans(bq, Qt + b_off);
-          repro::mma_bf16(dk[n], sh, bq[0], bq[1]);
-          repro::mma_bf16(dk[n + 1], sh, bq[2], bq[3]);
-          repro::mma_bf16(dk[n], sl, bq[0], bq[1]);
-          repro::mma_bf16(dk[n + 1], sl, bq[2], bq[3]);
+          for (int n = 0; n < DT; n += 2) {
+            const int b_off = t_at(n, LD);
+            unsigned bd[4], bq[4];
+            repro::ldmatrix_x4_trans(bd, dOt + b_off);
+            repro::mma_bf16(dv[n], ph, bd[0], bd[1]);
+            repro::mma_bf16(dv[n + 1], ph, bd[2], bd[3]);
+            repro::mma_bf16(dv[n], pl, bd[0], bd[1]);
+            repro::mma_bf16(dv[n + 1], pl, bd[2], bd[3]);
+            repro::ldmatrix_x4_trans(bq, Qt + b_off);
+            repro::mma_bf16(dk[n], sh, bq[0], bq[1]);
+            repro::mma_bf16(dk[n + 1], sh, bq[2], bq[3]);
+            repro::mma_bf16(dk[n], sl, bq[0], bq[1]);
+            repro::mma_bf16(dk[n + 1], sl, bq[2], bq[3]);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < DTV; n += 2) {
+            unsigned bd[4];
+            repro::ldmatrix_x4_trans(bd, dOt + t_at(n, LDV));
+            repro::mma_bf16(dv[n], ph, bd[0], bd[1]);
+            repro::mma_bf16(dv[n + 1], ph, bd[2], bd[3]);
+            repro::mma_bf16(dv[n], pl, bd[0], bd[1]);
+            repro::mma_bf16(dv[n + 1], pl, bd[2], bd[3]);
+          }
+#pragma unroll
+          for (int n = 0; n < DT; n += 2) {
+            unsigned bq[4];
+            repro::ldmatrix_x4_trans(bq, Qt + t_at(n, LD));
+            repro::mma_bf16(dk[n], sh, bq[0], bq[1]);
+            repro::mma_bf16(dk[n + 1], sh, bq[2], bq[3]);
+            repro::mma_bf16(dk[n], sl, bq[0], bq[1]);
+            repro::mma_bf16(dk[n + 1], sl, bq[2], bq[3]);
+          }
         }
       }
     }
@@ -782,15 +901,39 @@ __global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdPara
   for (int r = 0; r < 2; ++r) {
     const int j = r ? kb8 : ka;
     if (j >= p.Tk) continue;
+    if constexpr (D == DV) {
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const int c = n * 8 + 2 * cq;
-      *reinterpret_cast<unsigned*>(dkb + j * p.sgkt + c) =
-          repro::pack_bf16(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<unsigned*>(dvb + j * p.sgvt + c) =
-          repro::pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+      for (int n = 0; n < DT; ++n) {
+        const int c = n * 8 + 2 * cq;
+        *reinterpret_cast<unsigned*>(dkb + j * p.sgkt + c) =
+            repro::pack_bf16(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+        *reinterpret_cast<unsigned*>(dvb + j * p.sgvt + c) =
+            repro::pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<unsigned*>(dkb + j * p.sgkt + n * 8 + 2 * cq) =
+            repro::pack_bf16(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+#pragma unroll
+      for (int n = 0; n < DTV; ++n)
+        *reinterpret_cast<unsigned*>(dvb + j * p.sgvt + n * 8 + 2 * cq) =
+            repro::pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16(const BwdParams p) {
+  dkv_bf16<D, D>(p);
+}
+
+// Latent attention's (192, 128): 32 keys of a block against 32-row q tiles;
+// dk (24 n-tiles) and dv (16) live in 160 accumulators a lane; shared
+// memory 65 KB.
+template <int D, int DV>
+__global__ void __launch_bounds__(kDkvBf16Warps * 32) bwd_dkv_bf16_dv(const BwdParams p) {
+  dkv_bf16<D, DV>(p);
 }
 
 // fp32 inputs: register-tiled CUDA cores, IEEE fp32. 256 threads on a KV
@@ -1029,13 +1172,31 @@ cudaError_t launch_dkv(bool bf16, const BwdParams& p, cudaStream_t s) {
   return launch(bwd_dkv_f32<D>, grid, kDkvF32Threads, DkvF32<D>::smem, p, s);
 }
 
-int run(bool dkv, int D, int is_bf16, const BwdParams& p, void* stream) {
+// Latent attention's widths: bf16 only.
+template <int D, int DV>
+cudaError_t launch_dv(bool dkv, bool bf16, const BwdParams& p, cudaStream_t s) {
+  if (!bf16) return cudaErrorInvalidValue;
+  if (dkv) {
+    const dim3 grid((p.Tk + DkvBf16<D, DV>::BN - 1) / DkvBf16<D, DV>::BN, p.KV, p.B);
+    return launch(bwd_dkv_bf16_dv<D, DV>, grid, kDkvBf16Warps * 32, DkvBf16<D, DV>::smem, p,
+                  s);
+  }
+  const int rows = p.H / p.KV * p.Tq;
+  const dim3 grid((rows + DqBf16<D, DV>::BM - 1) / DqBf16<D, DV>::BM, p.KV, p.B);
+  return launch(bwd_dq_bf16_dv<D, DV>, grid, kDqBf16Threads, DqBf16<D, DV>::smem, p, s);
+}
+
+int run(bool dkv, int D, int DV, int is_bf16, const BwdParams& p, void* stream) {
   if (p.B == 0 || p.H == 0 || p.Tq == 0 || p.Tk == 0) {
     return static_cast<int>(cudaGetLastError());
   }
   auto s = static_cast<cudaStream_t>(stream);
   const bool bf16 = is_bf16 != 0;
   cudaError_t e;
+  if (D != DV) {
+    e = D == 192 && DV == 128 ? launch_dv<192, 128>(dkv, bf16, p, s) : cudaErrorInvalidValue;
+    return static_cast<int>(e);
+  }
   switch (D) {
     case 32: e = dkv ? launch_dkv<32>(bf16, p, s) : launch_dq<32>(bf16, p, s); break;
     case 64: e = dkv ? launch_dkv<64>(bf16, p, s) : launch_dq<64>(bf16, p, s); break;
@@ -1049,13 +1210,14 @@ int run(bool dkv, int D, int is_bf16, const BwdParams& p, void* stream) {
 
 }  // namespace
 
-// q, o, dO, dq: (B, H, Tq, D); k, v: (B, KV, Tk, D); lse, delta: (B, H, Tq)
-// fp32, contiguous. Addressed through (batch, head, time) strides in
-// elements as flash_fwd, every row 16-byte aligned; D in {32, 64, 80, 128, 256}.
-// Writes dq (in q's dtype) and delta = rowsum(dO * O) for every row.
+// q, dq: (B, H, Tq, D); o, dO: (B, H, Tq, DV); k: (B, KV, Tk, D); v: (B,
+// KV, Tk, DV); lse, delta: (B, H, Tq) fp32, contiguous. Addressed through
+// (batch, head, time) strides in elements as flash_fwd, every row 16-byte
+// aligned; D == DV in {32, 64, 80, 128, 256}, or (D, DV) = (192, 128) with
+// bf16. Writes dq (in q's dtype) and delta = rowsum(dO * O) for every row.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* delta, void* dq,
-                            int B, int H, int KV, int Tq, int Tk, int D,
+                            int B, int H, int KV, int Tq, int Tk, int D, int DV,
                             int sqb, int sqh, int sqt, int skb, int skh, int skt,
                             int svb, int svh, int svt, int sob, int soh, int sot,
                             int sdob, int sdoh, int sdot, int sgqb, int sgqh, int sgqt,
@@ -1068,15 +1230,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                     sdob, sdoh, sdot,
                     sgqb, sgqh, sgqt, 0, 0, 0, 0, 0, 0,
                     scale, causal, window, cap, kv_len, cap > 0.f ? 1.f / cap : 0.f};
-  return run(false, D, is_bf16, p, stream);
+  return run(false, D, DV, is_bf16, p, stream);
 }
 
-// dk, dv: (B, KV, Tk, D) in k's dtype, one gradient per KV head (the sum
+// dk, dv: like k and v, in k's dtype, one gradient per KV head (the sum
 // over its G query heads); delta as flash_bwd_dq wrote it; other arguments
 // as flash_bwd_dq.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
-                             int B, int H, int KV, int Tq, int Tk, int D,
+                             int B, int H, int KV, int Tq, int Tk, int D, int DV,
                              int sqb, int sqh, int sqt, int skb, int skh, int skt,
                              int svb, int svh, int svt, int sdob, int sdoh, int sdot,
                              int sgkb, int sgkh, int sgkt, int sgvb, int sgvh, int sgvt,
@@ -1089,5 +1251,5 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                     sdob, sdoh, sdot,
                     0, 0, 0, sgkb, sgkh, sgkt, sgvb, sgvh, sgvt,
                     scale, causal, window, cap, kv_len, cap > 0.f ? 1.f / cap : 0.f};
-  return run(true, D, is_bf16, p, stream);
+  return run(true, D, DV, is_bf16, p, stream);
 }

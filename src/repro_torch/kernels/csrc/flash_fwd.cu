@@ -50,6 +50,17 @@
 //   (hubert's 80) ends with a pass of 16 columns that half the lanes
 //   (tx < 8) take. A tile whose pairs are all live skips the per-pair
 //   masks. At T = 4096 the 256 blocks are ~2 per SM, 16 warps.
+//
+// Latent attention (DeepSeek-V3's MLA, Kimi K2's) has q and k 192 wide and
+// v 128: flash_fwd_bf16_dv<192, 128> is the bf16 kernel's body with q and
+// k tiles at their width and v's and o's at theirs, so neither is padded
+// to 256 (1.6x the work the roofline counts). Its tiling is the D = 128
+// kernel's: 64 rows a block, 4 warps of 16, 32-key tiles. A wider
+// row tile would halve K/V traffic per row, but at H = KV = 64 (G = 1) and
+// T = 8192 the grid is already 128 x 64 blocks, K/V reads are L2 hits,
+// and S's 12 k-steps and P V's 8 n-tile pairs keep 64 o accumulators and
+// the S fragments within one block's registers; shared memory is 67 KB
+// (3 blocks an SM). It has no fp32 regime.
 #include "common.cuh"
 
 namespace {
@@ -96,11 +107,13 @@ __device__ __forceinline__ float softcap(float s, const FlashParams& p) {
   return p.cap > 0.f ? tanhf(s * p.inv_cap) * p.cap : s;
 }
 
-// Shared memory of each regime, in bytes.
-template <int D> struct Bf16Tile {
+// Shared memory of each regime, in bytes. The bf16 tiles of q and k are
+// DQ wide, v's DV (DQ == DV but for latent attention's (192, 128)).
+template <int DQ, int DV = DQ> struct Bf16Tile {
   static constexpr int BN = 32;                 // keys per KV tile
-  static constexpr int LD = D + 8;              // row pitch: 16*odd bytes, ldmatrix conflict-free
-  static constexpr int smem = (kBM + 4 * BN) * LD * 2;
+  static constexpr int LD = DQ + 8;             // row pitch: 16*odd bytes, ldmatrix conflict-free
+  static constexpr int LDV = DV + 8;
+  static constexpr int smem = (kBM + 2 * BN) * LD * 2 + 2 * BN * LDV * 2;
 };
 template <int D> struct F32Tile {
   static constexpr int BN = D <= 128 ? 64 : 32;
@@ -111,16 +124,19 @@ template <int D> struct F32Tile {
 
 // -- bf16: tensor cores ----------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const FlashParams p) {
+// The kernel's body, q and k D wide and v and o DV: flash_fwd_bf16<D> is
+// it at D == DV, flash_fwd_bf16_dv<D, DV> at latent attention's widths.
+template <int D, int DV>
+__device__ __forceinline__ void fwd_bf16(const FlashParams& p) {
   using T = __nv_bfloat16;
-  constexpr int BN = Bf16Tile<D>::BN, LD = Bf16Tile<D>::LD;
+  constexpr int BN = Bf16Tile<D, DV>::BN, LD = Bf16Tile<D, DV>::LD;
+  constexpr int LDV = Bf16Tile<D, DV>::LDV;
   constexpr int NT = BN / 8;  // S n-tiles per warp
-  constexpr int DT = D / 8;   // o n-tiles per warp
+  constexpr int DT = DV / 8;  // o n-tiles per warp
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);  // [kBM][LD]
   T* Ks = Qs + kBM * LD;                // [2][BN][LD]
-  T* Vs = Ks + 2 * BN * LD;             // [2][BN][LD]
+  T* Vs = Ks + 2 * BN * LD;             // [2][BN][LDV]
 
   const int b = blockIdx.z, kvh = blockIdx.y, r0 = blockIdx.x * kBM;
   const int G = p.H / p.KV, R = G * p.Tq;
@@ -153,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const FlashParams p) 
       return [=](int i) -> const T* { return k0 + i < Tk ? base + (k0 + i) * st : nullptr; };
     };
     repro::stage_rows<T, D, BN, LD, kThreads>(Ks + buf * BN * LD, at(kb, p.skt));
-    repro::stage_rows<T, D, BN, LD, kThreads>(Vs + buf * BN * LD, at(vb, p.svt));
+    repro::stage_rows<T, DV, BN, LDV, kThreads>(Vs + buf * BN * LDV, at(vb, p.svt));
   };
 
   float o[DT][4];
@@ -172,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const FlashParams p) 
     const int k0 = kt * BN;
     if (k0 >= whi || k0 + BN <= wlo) continue;  // warp-uniform: no live key for these rows
     const T* Kt = Ks + buf * BN * LD;
-    const T* Vt = Vs + buf * BN * LD;
+    const T* Vt = Vs + buf * BN * LDV;
 
     float s[NT][4];
 #pragma unroll
@@ -246,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const FlashParams p) 
 #pragma unroll
       for (int n = 0; n < DT; n += 2) {
         unsigned bv[4];
-        repro::ldmatrix_x4_trans(bv, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+        repro::ldmatrix_x4_trans(bv, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV
                                          + n * 8 + (lane >> 4) * 8);
         repro::mma_bf16(o[n], ah, bv[0], bv[1]);
         repro::mma_bf16(o[n + 1], ah, bv[2], bv[3]);
@@ -280,6 +296,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const FlashParams p) 
       p.lse[(static_cast<long long>(b) * p.H + kvh * G + g) * p.Tq + t] =
           l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const FlashParams p) {
+  fwd_bf16<D, D>(p);
+}
+
+// Latent attention's widths, q and k 192 and v 128 (DeepSeek-V3's MLA,
+// Kimi K2's): the same tiles, q and k staged at their own pitch. A tile of
+// 64 rows x 32 keys costs 12 k-steps for S and 8 n-tile pairs for P V, the
+// shapes the D = 128 kernel already balances; shared memory is 67 KB
+// (q 64 x 200, k 2 x 32 x 200, v 2 x 32 x 136 bf16), 3 blocks an SM.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_dv(const FlashParams p) {
+  fwd_bf16<D, DV>(p);
 }
 
 // -- fp32: register-tiled CUDA cores --------------------------------------------
@@ -471,14 +502,21 @@ cudaError_t launch_d(bool bf16, const FlashParams& p, cudaStream_t s) {
               : launch(flash_fwd_f32<D>, kF32Threads, F32Tile<D>::smem, p, s);
 }
 
+template <int D, int DV>
+cudaError_t launch_dv(bool bf16, const FlashParams& p, cudaStream_t s) {
+  if (!bf16) return cudaErrorInvalidValue;  // bf16 only at these widths
+  return launch(flash_fwd_bf16_dv<D, DV>, kThreads, Bf16Tile<D, DV>::smem, p, s);
+}
+
 }  // namespace
 
-// q: (B, H, Tq, D); k, v: (B, KV, Tk, D); o like q; lse: (B, H, Tq) fp32,
-// contiguous. q/k/v/o are addressed through their (batch, head, time)
-// strides in elements; the last dim is contiguous, and every row starts
-// 16-byte aligned. D in {32, 64, 80, 128, 256}.
+// q: (B, H, Tq, D); k: (B, KV, Tk, D); v: (B, KV, Tk, DV); o: (B, H, Tq,
+// DV); lse: (B, H, Tq) fp32, contiguous. q/k/v/o are addressed through
+// their (batch, head, time) strides in elements; the last dim is
+// contiguous, and every row starts 16-byte aligned. D == DV in {32, 64,
+// 80, 128, 256}, or (D, DV) = (192, 128) with bf16.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int B, int H, int KV, int Tq, int Tk, int D,
+                         int B, int H, int KV, int Tq, int Tk, int D, int DV,
                          int sqb, int sqh, int sqt, int skb, int skh, int skt,
                          int svb, int svh, int svt, int sob, int soh, int sot,
                          float scale, int causal, int window, float cap, int kv_len,
@@ -490,6 +528,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                       cap > 0.f ? 1.f / cap : 0.f};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (D != DV) {
+    e = D == 192 && DV == 128 ? launch_dv<192, 128>(is_bf16, p, s) : cudaErrorInvalidValue;
+    return static_cast<int>(e);
+  }
   switch (D) {
     case 32: e = launch_d<32>(is_bf16, p, s); break;
     case 64: e = launch_d<64>(is_bf16, p, s); break;

@@ -22,6 +22,10 @@ counts its kernel's launches and nothing else. Meta tensors are checked
 as the card's would be, but for the kernels' 32-bit index limit (nothing
 is indexed), and get the kernels' outputs and no launch (shape-only
 evaluation); `cost.py` has each kernel's work.
+
+v (and so o and dO) may be narrower than q and k: latent attention's q
+and k are 192 wide and v 128 (`WIDE_PAIRS`), which the bf16 kernels take
+at those widths, nothing padded.
 """
 from __future__ import annotations
 
@@ -37,13 +41,14 @@ from repro_torch.kernels.flash_attention.ref import (
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 80, 128, 256)
+WIDE_PAIRS = ((192, 128),)  # (q's and k's width, v's): bf16 only
 _INT_MAX = 2 ** 31 - 1
 ALIGN = 16          # bytes: one cp.async chunk
 
 
 def _check(q, k, v, mixed):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash attention: q (B,H,Tq,d), k and v (B,KV,Tk,d); "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash attention: q (B,H,Tq,d), k (B,KV,Tk,d) and v (B,KV,Tk,dv); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, _, d = q.shape
     if k.shape[0] != B or k.shape[3] != d or k.shape[1] == 0 or H % k.shape[1]:
@@ -57,9 +62,15 @@ def _check(q, k, v, mixed):
         raise ValueError("flash attention: q, k, v on different devices")
 
 
-def check_head_dim(d: int) -> None:
-    """Raise unless the kernels are built for head dim `d`."""
-    if d not in HEAD_DIMS:
+def check_head_dim(d: int, dv: int = None, dtype=torch.bfloat16) -> None:
+    """Raise unless the kernels are built for q's and k's width `d` and
+    v's `dv` (default d) in `dtype`."""
+    dv = d if dv is None else dv
+    if dv != d:
+        if (d, dv) not in WIDE_PAIRS or dtype != torch.bfloat16:
+            raise ValueError(f"flash attention kernel takes (d, dv) in {WIDE_PAIRS} in bf16 "
+                             f"or d == dv, got ({d}, {dv}) in {dtype}")
+    elif d not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
 
 
@@ -97,19 +108,31 @@ def _strides(*ts):
     return out
 
 
-def _check_kernel(q):
+def _check_kernel(q, v):
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention: unsupported device {q.device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash attention kernel takes {DTYPES}, got {q.dtype}")
-    check_head_dim(q.shape[3])
+    check_head_dim(q.shape[3], v.shape[3], q.dtype)
+
+
+def _like_q(q, dv):
+    """An empty (B, H, Tq, dv) in q's dtype and memory layout: q's own
+    shape where dv is its width, else (B, Tq, H, dv) seen as (B, H, Tq, dv)
+    where q's heads are its inner axis (the model's layout)."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    B, H, Tq, _ = q.shape
+    if q.stride(1) < q.stride(2):
+        return q.new_empty((B, Tq, H, dv)).transpose(1, 2)
+    return q.new_empty((B, H, Tq, dv))
 
 
 @cost.counted("flash_attention_fwd", cost.attention_fwd)
 def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                         kv_len=None, mixed=False):
-    """q: (B, H, Tq, d); k, v: (B, KV, Tk, d). Returns (o (B, H, Tq, d) in
-    q's dtype, lse (B, H, Tq) fp32). Masks: causal (k <= q), sliding window
+    """q: (B, H, Tq, d); k: (B, KV, Tk, d); v: (B, KV, Tk, dv). Returns (o
+    (B, H, Tq, dv) in q's dtype, lse (B, H, Tq) fp32). Masks: causal (k <= q), sliding window
     (q - k < window), tail (k < kv_len); logits soft-capped as
     tanh(s / cap) * cap before the mask."""
     _check(q, k, v, mixed)
@@ -117,10 +140,10 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
         return attention_fwd_ref(q, k, v, scale=scale, causal=causal,
                                  window=window, cap=cap, kv_len=kv_len,
                                  mixed=mixed)
-    _check_kernel(q)
+    _check_kernel(q, v)
     B, H, Tq, d = q.shape
-    KV, Tk = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
+    KV, Tk, dv = k.shape[1], k.shape[2], v.shape[3]
+    o = _like_q(q, dv)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     check_aligned(q, k, v, o)
     if q.device.type == "meta":
@@ -129,7 +152,7 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0, cap=0.0,
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
     lib = _build.library()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                        lse.data_ptr(), B, H, KV, Tq, Tk, d, *strides,
+                        lse.data_ptr(), B, H, KV, Tq, Tk, d, dv, *strides,
                         float(scale), int(causal), int(window), float(cap or 0.0),
                         kv_len, int(q.dtype == torch.bfloat16), int(mixed),
                         torch.cuda.current_stream(q.device).cuda_stream)
@@ -147,14 +170,15 @@ def _bwd_args(q, k, v, do, **stats):
     """Check the backward's inputs; return the (B, H, Tq) fp32 `stats` (lse,
     delta) contiguous."""
     _check(q, k, v, False)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+    if (do.shape != q.shape[:3] + v.shape[3:] or do.dtype != q.dtype
+            or do.device != q.device):
         raise ValueError(f"flash backward: dO {tuple(do.shape)} {do.dtype} does not "
-                         f"match q {tuple(q.shape)} {q.dtype}")
+                         f"match q {tuple(q.shape)} {q.dtype} and v's width {v.shape[3]}")
     for name, t in stats.items():
         if t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device:
             raise ValueError(f"flash backward: {name} must be (B, H, Tq) fp32 on q's device")
     if q.device.type != "cpu":
-        _check_kernel(q)
+        _check_kernel(q, v)
     return [t.contiguous() for t in stats.values()]
 
 
@@ -175,7 +199,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
         delta = attention_bwd_preprocess_ref(o, do)
         return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[0], delta
     B, H, Tq, d = q.shape
-    KV, Tk = k.shape[1], k.shape[2]
+    KV, Tk, dv = k.shape[1], k.shape[2], v.shape[3]
     dq = torch.empty_like(q)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     check_aligned(q, k, v, o, do, dq)
@@ -186,7 +210,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
     lib = _build.library()
     err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                           B, H, KV, Tq, Tk, d, *strides,
+                           B, H, KV, Tq, Tk, d, dv, *strides,
                            float(scale), int(causal), int(window), float(cap or 0.0),
                            kv_len, int(q.dtype == torch.bfloat16),
                            torch.cuda.current_stream(q.device).cuda_stream)
@@ -198,14 +222,14 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
 @cost.counted("flash_attention_bwd_dkv", cost.attention_bwd_dkv)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
                             window=0, cap=0.0, kv_len=None):
-    """(dk, dv), each (B, KV, Tk, d) in k's dtype and layout: the sum over
+    """(dk, dv), like k and v in k's dtype and their layouts: the sum over
     each KV head's G query heads, accumulated in fp32 in one block."""
     lse, delta = _bwd_args(q, k, v, do, lse=lse, delta=delta)
     kw = dict(scale=scale, causal=causal, window=window, cap=cap, kv_len=kv_len)
     if q.device.type == "cpu":
         return attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)[1:]
     B, H, Tq, d = q.shape
-    KV, Tk = k.shape[1], k.shape[2]
+    KV, Tk, dvw = k.shape[1], k.shape[2], v.shape[3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     check_aligned(q, k, v, do, dk, dv)
     if q.device.type == "meta":
@@ -215,7 +239,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
     lib = _build.library()
     err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            B, H, KV, Tq, Tk, d, *strides,
+                            B, H, KV, Tq, Tk, d, dvw, *strides,
                             float(scale), int(causal), int(window), float(cap or 0.0),
                             kv_len, int(q.dtype == torch.bfloat16),
                             torch.cuda.current_stream(q.device).cuda_stream)
@@ -270,6 +294,6 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                     kv_len=None, mixed=False):
-    """Differentiable attention: (B, H, Tq, d), like `flash_attention_fwd`
+    """Differentiable attention: (B, H, Tq, dv), like `flash_attention_fwd`
     without the lse."""
     return _FlashAttention.apply(q, k, v, scale, causal, window, cap, kv_len, mixed)

@@ -34,8 +34,8 @@ def _mask(Tq, Tk, kv_len, causal, window, device):
 
 def attention_fwd_ref(q, k, v, *, scale, causal=True, window=0, cap=0.0,
                       kv_len=None, mixed=False):
-    """q: (B, H, Tq, d); k, v: (B, KV, Tk, d), H = KV * G with query head h
-    reading KV head h // G. Returns (o (B, H, Tq, d) in q's dtype,
+    """q: (B, H, Tq, d); k: (B, KV, Tk, d); v: (B, KV, Tk, dv), H = KV * G
+    with query head h reading KV head h // G. Returns (o (B, H, Tq, dv) in q's dtype,
     lse (B, H, Tq) fp32). `mixed` rounds the probabilities to bf16 before
     p @ v, as the bf16 serving kernel does."""
     B, H, Tq, d = q.shape
@@ -55,7 +55,7 @@ def attention_fwd_ref(q, k, v, *, scale, causal=True, window=0, cap=0.0,
     o = torch.matmul(p, v.float()[:, :, None])
     o = o / torch.where(l == 0, torch.ones_like(l), l)
     lse = torch.where(l > 0, m + torch.log(l), torch.zeros_like(l))
-    return (o.reshape(B, H, Tq, d).to(q.dtype), lse.reshape(B, H, Tq))
+    return (o.reshape(B, H, Tq, v.shape[3]).to(q.dtype), lse.reshape(B, H, Tq))
 
 
 def attention_bwd_preprocess_ref(o, do):
@@ -77,7 +77,7 @@ def attention_bwd_grads_ref(q, k, v, do, lse, delta, *, scale, causal=True,
     KV, Tk = k.shape[1], k.shape[2]
     G = H // KV
     qf = q.float().reshape(B, KV, G, Tq, d)
-    dof = do.float().reshape(B, KV, G, Tq, d)
+    dof = do.float().reshape(B, KV, G, Tq, do.shape[-1])
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if cap:
@@ -98,9 +98,9 @@ def attention_bwd_grads_ref(q, k, v, do, lse, delta, *, scale, causal=True,
 def attention_bwd_ref(q, k, v, o, lse, do, *, scale, causal=True, window=0,
                       cap=0.0, kv_len=None):
     """The plain version of the three backward kernels (preprocess, dq,
-    dk/dv). q, o, do: (B, H, Tq, d); k, v: (B, KV, Tk, d); lse: (B, H, Tq)
-    fp32 from the forward. Returns (delta (B, H, Tq) fp32, dq (B, H, Tq, d),
-    dk, dv (B, KV, Tk, d))."""
+    dk/dv). q: (B, H, Tq, d); o, do: (B, H, Tq, dv); k: (B, KV, Tk, d); v:
+    (B, KV, Tk, dv); lse: (B, H, Tq) fp32 from the forward. Returns (delta
+    (B, H, Tq) fp32, dq (B, H, Tq, d), dk and dv like k and v)."""
     delta = attention_bwd_preprocess_ref(o, do)
     return (delta,) + attention_bwd_grads_ref(
         q, k, v, do, lse, delta, scale=scale, causal=causal, window=window,

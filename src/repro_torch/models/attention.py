@@ -31,6 +31,16 @@ follows `repro`'s `state_shardings` (`sharding.cache_mode`):
     'model' by the log-sum-exp rule (`_attend_split`). The positions stay
     whole on every rank.
 
+Latent attention (`cfg.mla` set, DeepSeek-V3's
+`DeepseekV3Attention` in its non-absorbed form): q = W_qb rmsnorm(W_qa x),
+[c_kv, k_pe] = W_kva x, [k_nope, v] = W_kvb rmsnorm(c_kv); q's last
+`qk_rope_head_dim` columns and k_pe (one for all heads) take rotary
+embeddings (YaRN's where the config scales them) and k = [k_nope, k_pe];
+the flash kernel takes q and k `qk_head_dim` wide and v `v_head_dim`
+wide. Traced, the projections, latent norms and rope, and the output
+projection, are each a phase `mla.project`. The full-sequence pass only:
+there is no decode cache for it.
+
 Model axis: with params stacked on a leading model axis M, activations are
 (M, B, T, d); the projections are batched matmuls and attention folds M
 into the batch, since the models share no keys. Decode has no model axis
@@ -43,11 +53,14 @@ import torch
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
+from repro_torch.utils import trace
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16/softcap fine
 
 
 def init_attention(gen, cfg, dtype):
+    if cfg.mla is not None:
+        return init_mla(gen, cfg, dtype)
     p = {
         "wq": L.dense_init(gen, cfg.d_model, cfg.q_dim, dtype, cfg.attn_bias),
         "wk": L.dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, cfg.attn_bias),
@@ -58,6 +71,61 @@ def init_attention(gen, cfg, dtype):
         p["q_norm"] = L.rmsnorm_init(cfg.head_dim, dtype, gen.device)
         p["k_norm"] = L.rmsnorm_init(cfg.head_dim, dtype, gen.device)
     return p
+
+
+def init_mla(gen, cfg, dtype):
+    m, d, H = cfg.mla, cfg.d_model, cfg.num_heads
+    dev = gen.device
+    return {
+        "wq_a": L.dense_init(gen, d, m.q_lora_rank, dtype),
+        "q_a_norm": L.rmsnorm_init(m.q_lora_rank, dtype, dev),
+        "wq_b": L.dense_init(gen, m.q_lora_rank, H * m.qk_head_dim, dtype),
+        "wkv_a": L.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, dtype),
+        "kv_a_norm": L.rmsnorm_init(m.kv_lora_rank, dtype, dev),
+        "wkv_b": L.dense_init(gen, m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim),
+                              dtype),
+        "wo": L.dense_init(gen, H * m.v_head_dim, d, dtype),
+    }
+
+
+def mla_rope(cfg, device):
+    """(inverse frequencies, cos/sin scale) of MLA's rotary dims."""
+    dim, s = cfg.mla.qk_rope_head_dim, cfg.rope_scaling
+    if s is None:
+        return L.rope_freqs(dim, cfg.rope_theta, device), 1.0
+    return (L.yarn_freqs(dim, cfg.rope_theta, s, device),
+            L.yarn_mscale(s.factor, s.mscale) / L.yarn_mscale(s.factor, s.mscale_all_dim))
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale: qk_head_dim^-0.5, times YaRN's mscale squared
+    where `mscale_all_dim` is set."""
+    s = cfg.rope_scaling
+    m = L.yarn_mscale(s.factor, s.mscale_all_dim) if s is not None and s.mscale_all_dim else 1.0
+    return cfg.mla.qk_head_dim ** -0.5 * m * m
+
+
+def mla_attention(p, cfg, x, positions):
+    """Latent attention over the full sequence (module docstring). x: (B, T, d)."""
+    m, H = cfg.mla, cfg.num_heads
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    lead = x.shape[:-1]
+    with trace.phase("mla.project", x):
+        q = L.dense(p["wq_b"], L.rmsnorm(p["q_a_norm"], L.dense(p["wq_a"], x)))
+        q = q.reshape(*lead, H, m.qk_head_dim)
+        c_kv, k_pe = L.dense(p["wkv_a"], x).split([m.kv_lora_rank, rope], dim=-1)
+        kv = L.dense(p["wkv_b"], L.rmsnorm(p["kv_a_norm"], c_kv.contiguous()))
+        k_nope, v = kv.reshape(*lead, H, nope + m.v_head_dim).split([nope, m.v_head_dim],
+                                                                     dim=-1)
+        inv_freq, mscale = mla_rope(cfg, x.device)
+        q = torch.cat([q[..., :nope], L.apply_rope_pairs(q[..., nope:], positions, inv_freq,
+                                                         mscale)], dim=-1)
+        k_pe = L.apply_rope_pairs(k_pe[..., None, :], positions, inv_freq, mscale)
+        k = torch.cat([k_nope, k_pe.expand(*lead, H, rope)], dim=-1)
+    o = chunked_attend(q, k, v, causal=not cfg.encoder_only, window=0, cap=0.0,
+                       scale=mla_scale(cfg))
+    with trace.phase("mla.project", x):
+        return L.dense(p["wo"], o.reshape(*lead, H * m.v_head_dim))
 
 
 def _project_qkv(p, cfg, x, positions):
@@ -96,6 +164,11 @@ def full_attention(p, cfg, x, positions, *, layer_type="global", return_kv=False
     window). Encoder-only archs are bidirectional. With `return_kv` the
     result is (y, k, v), k and v (..., T, KV, hd) after RoPE: what
     `prefill` writes into the decode cache."""
+    if cfg.mla is not None:
+        if return_kv or layer_type != "global" or x.dim() != 3:
+            raise NotImplementedError(f"{cfg.name}: latent attention runs the full sequence "
+                                      f"of a (B, T, d) batch, without a cache")
+        return mla_attention(p, cfg, x, positions)
     q, k, v = _project_qkv(p, cfg, x, positions)
     lead = x.shape[:-2]                      # (B,) or (M, B)
     T = x.shape[-2]

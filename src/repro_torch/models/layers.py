@@ -117,6 +117,47 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale factor, 0.1 * mscale * ln(factor) + 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, s, device=None):
+    """YaRN's inverse frequencies of `dim` rotary dims (DeepSeek-V3's
+    `DeepseekV3YarnRotaryEmbedding`): the pairs below the correction range
+    that `beta_fast` and `beta_slow` rotations over the original length
+    give keep their frequency, those above it are divided by `factor`, and
+    a linear ramp joins them. `s` is a `configs.YarnScaling`."""
+    pos = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / theta ** pos
+    inter = 1.0 / (s.factor * theta ** pos)
+
+    def dim_of(rotations):
+        return (dim * math.log(s.original_max_position / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(dim_of(s.beta_fast)), 0)
+    high = min(math.ceil(dim_of(s.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0.0, 1.0)
+    return inter * ramp + extra * (1.0 - ramp)
+
+
+def apply_rope_pairs(x, positions, inv_freq, mscale: float = 1.0):
+    """Rotary embeddings on adjacent pairs (2i, 2i + 1) of x's last axis,
+    the pairing of DeepSeek-V3's checkpoints, written out as the rotated
+    even dims then the rotated odd ones (the order its `apply_rotary_pos_emb`
+    leaves them in). x: (..., T, H, dim); positions broadcastable to
+    (..., T); cos and sin times `mscale`."""
+    angles = positions[..., None].float() * inv_freq                 # (..., T, dim/2)
+    cos = (torch.cos(angles) * mscale)[..., None, :]
+    sin = (torch.sin(angles) * mscale)[..., None, :]
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 # -- MLPs ----------------------------------------------------------------------
 
 def act_fn(name):

@@ -30,6 +30,17 @@ toggle (`set_expert_parallel`), as `repro`'s does:
     computed over all E on every model rank;
   - on (`moe_apply_ep`, `repro`'s `shard_map` body run per rank): the
     per-(data shard) capacity, C = max(int(N_l * k * cf / E), k).
+
+DeepSeek-V3's sigmoid router (`configs.RouterConfig`, `noaux_tc`; the
+port's own: `repro` has none) runs on a single device: the
+experts are chosen by the top-k of sigmoid(x W) + b over the router's
+width R, b an untrained correction bias, and weighted by the chosen scores
+s, renormalised and scaled; the balance term is DeepSeek-V3's
+sequence-wise one (`seq_balance`). Where the layer holds E < R experts
+(the share of rank 0 of an expert-parallel layer, experts 0..E-1), it
+routes over all R with the capacity C = max(int(N * k * cf / R), k),
+runs its E experts on the choices routed to them (`route_local`), and adds
+the shared expert once: its result is this device's partial sum.
 """
 from __future__ import annotations
 
@@ -42,21 +53,27 @@ from repro_torch.models import layers as L
 from repro_torch.utils import trace
 
 PAD_ROWS = 16   # drop-bucket rows, as `repro` sizes its buffer
+BIAS_SCALE = 0.02  # the correction bias's initial draw: N(0, 1) clipped to +-2, times this
 
 
 def init_moe(gen, cfg, dtype):
+    """The router over `cfg.router_experts` (with its correction bias, an
+    fp32 (R,) buffer no loss reaches, where the router has one), the
+    `num_experts` experts held, and the shared experts as one MLP of width
+    `cfg.shared_ff`."""
     e = cfg.moe
     d, ff = cfg.d_model, e.d_ff_expert
     scale = d ** -0.5
     p = {
-        "router": {"w": L._normal(gen, (d, e.num_experts), scale, torch.float32)},
+        "router": {"w": L._normal(gen, (d, cfg.router_experts), scale, torch.float32)},
         "up": L._normal(gen, (e.num_experts, d, ff), scale, dtype),
         "gate": L._normal(gen, (e.num_experts, d, ff), scale, dtype),
         "down": L._normal(gen, (e.num_experts, ff, d), ff ** -0.5, dtype),
     }
+    if cfg.router is not None:
+        p["router"]["bias"] = L._normal(gen, (cfg.router_experts,), BIAS_SCALE, torch.float32)
     if e.num_shared_experts:
-        p["shared"] = L.mlp_init(gen, d, cfg.d_ff * e.num_shared_experts, dtype,
-                                 gated=cfg.mlp_gated)
+        p["shared"] = L.mlp_init(gen, d, cfg.shared_ff, dtype, gated=cfg.mlp_gated)
     return p
 
 
@@ -94,9 +111,13 @@ def moe_apply(p, cfg, x):
     the toggle is on and the experts divide over 'model', as `repro`
     decides. Traced (`utils/trace.py`), the single-device path is three
     phases: `moe.route` (router, top-k, the scatter into the expert
-    buffers), `moe.experts` (the expert products) and `moe.combine`."""
+    buffers), `moe.experts` (the expert products) and `moe.combine`. A
+    layer that holds a share of the router's experts fills and combines
+    its buffer row by row (`_slot_rows`)."""
     mesh = SH.dp_mesh()
     if mesh is not None:
+        if cfg.router is not None:
+            raise NotImplementedError(f"{cfg.name}: a mesh routes with the softmax router only")
         M = SH.mesh_sizes(mesh).get("model", 1)
         return _moe_ranked(p, cfg, x, mesh,
                            ep=expert_parallel() and cfg.moe.num_experts % M == 0)
@@ -105,16 +126,29 @@ def moe_apply(p, cfg, x):
     xf = x.reshape(B * T, d)
     N = xf.shape[0]
     E, k = e.num_experts, e.experts_per_token
-    capacity = max(int(N * k * e.capacity_factor / E), k)
+    sigmoid = cfg.router is not None
+    share = cfg.router_experts > E
+    capacity = max(int(N * k * e.capacity_factor / cfg.router_experts), k)
 
     with trace.phase("moe.route", x):
-        gates = torch.softmax(xf.float() @ p["router"]["w"].float(), dim=-1)   # (N, E)
-        slot, weight, keep, counts = route_topk(gates, k, capacity)
-
-        # scatter tokens into the expert buffers; the drop bucket is row E*C
-        buf = x.new_zeros((E * capacity + PAD_ROWS, d))
-        buf[slot.reshape(-1)] = xf[torch.arange(N * k, device=x.device) // k]
-        expert_in = buf[:E * capacity].view(E, capacity, d)
+        logits = xf.float() @ p["router"]["w"].float()
+        if sigmoid:
+            scores = torch.sigmoid(logits)                                  # (N, R)
+            weight, topi = sigmoid_choices(scores, p["router"]["bias"], k,
+                                           cfg.router.routed_scaling_factor)
+            slot, weight, keep, _ = route_local(scores, k, capacity, 0, E, (weight, topi))
+        else:
+            gates = torch.softmax(logits, dim=-1)                           # (N, E)
+            slot, weight, keep, counts = route_topk(gates, k, capacity)
+        if share:
+            tok, w_slot = _slot_rows(slot, weight * keep, N, E * capacity)
+            expert_in = torch.cat([xf, xf.new_zeros((1, d))]).index_select(0, tok)
+            expert_in = expert_in.view(E, capacity, d)
+        else:
+            # scatter tokens into the expert buffers; the drop bucket is row E*C
+            buf = x.new_zeros((E * capacity + PAD_ROWS, d))
+            buf[slot.reshape(-1)] = xf[torch.arange(N * k, device=x.device) // k]
+            expert_in = buf[:E * capacity].view(E, capacity, d)
 
     with trace.phase("moe.experts", x):
         a = L.act_fn(cfg.activation)
@@ -123,16 +157,23 @@ def moe_apply(p, cfg, x):
         out = torch.bmm(a(g) * h, p["down"].to(x.dtype))
 
     with trace.phase("moe.combine", x):
-        out_flat = torch.cat([out.reshape(E * capacity, d), x.new_zeros((PAD_ROWS, d))])
-        w = (weight * keep).to(x.dtype)
-        y = torch.einsum("nk,nkd->nd", w, out_flat[slot])
+        if share:
+            y = x.new_zeros((N + 1, d)).index_add(
+                0, tok, out.reshape(E * capacity, d) * w_slot[:, None].to(x.dtype))[:N]
+        else:
+            out_flat = torch.cat([out.reshape(E * capacity, d), x.new_zeros((PAD_ROWS, d))])
+            w = (weight * keep).to(x.dtype)
+            y = torch.einsum("nk,nkd->nd", w, out_flat[slot])
 
         if "shared" in p:
             y = y + L.mlp(p["shared"], xf, cfg.activation)
 
-        # load-balance aux loss (Switch): E * sum_e f_e * p_e, f before capacity
-        f = counts.float() / (N * k)
-        aux = e.router_aux_coef * E * (f * gates.mean(0)).sum()
+        if sigmoid:
+            aux = e.router_aux_coef * seq_balance(scores, topi, B)
+        else:
+            # load-balance aux loss (Switch): E * sum_e f_e * p_e, f before capacity
+            f = counts.float() / (N * k)
+            aux = e.router_aux_coef * E * (f * gates.mean(0)).sum()
     return y.reshape(B, T, d), aux
 
 
@@ -140,6 +181,47 @@ def _choices(gates, k: int):
     """(weight (N, k), expert (N, k)): the top-k gates, renormalised."""
     topv, topi = torch.topk(gates, k, dim=-1)
     return topv / (topv.sum(-1, keepdim=True) + 1e-9), topi
+
+
+def _slot_rows(slot, weight, N: int, rows: int):
+    """(token (rows,), weight (rows,)) of each row of the held experts'
+    buffer: the token whose choice fills it and that choice's weight, or
+    row N (a zero row) and weight 0 where no choice does. slot (N, k) as
+    `route_local` gives it, weight (N, k) with dropped choices at 0. The
+    buffer is filled and combined row by row from these, so the work
+    scales with the held experts' rows, not with the N k choices, nearly
+    all of which go to experts held elsewhere."""
+    flat = slot.reshape(-1)
+    k = slot.shape[1]
+    src = torch.arange(N, device=slot.device).repeat_interleave(k)
+    tok = torch.full((rows + PAD_ROWS,), N, dtype=torch.long, device=slot.device)
+    tok = tok.scatter(0, flat, src)[:rows]        # the drop bucket's rows are cut off
+    w = weight.new_zeros(rows + PAD_ROWS).scatter(0, flat, weight.reshape(-1))[:rows]
+    return tok, w
+
+
+def sigmoid_choices(scores, bias, k: int, scale: float):
+    """(weight (N, k), expert (N, k)) of a sigmoid router: the top-k of
+    scores + bias, weighted by their scores (the bias picks, it weighs
+    nothing), renormalised and times `scale`."""
+    topi = torch.topk(scores + bias.float(), k, dim=-1).indices
+    topv = scores.gather(1, topi)
+    return topv / (topv.sum(-1, keepdim=True) + 1e-20) * scale, topi
+
+
+def seq_balance(scores, topi, B: int):
+    """DeepSeek-V3's sequence-wise balance term (eqs. 17-20) over the
+    router's R experts, the mean over the B sequences of sum_i f_i P_i:
+    f_i = R / (k T) times the sequence's choices of expert i (before
+    capacity), P_i the mean over its tokens of s_i / sum_j s_j.
+    scores (B T, R) fp32, topi (B T, k)."""
+    N, R = scores.shape
+    T, k = N // B, topi.shape[1]
+    f = torch.zeros((B, R), dtype=scores.dtype, device=scores.device).scatter_add_(
+        1, topi.reshape(B, T * k), torch.ones((B, T * k), dtype=scores.dtype,
+                                              device=scores.device)) * (R / (k * T))
+    P = (scores / scores.sum(-1, keepdim=True)).reshape(B, T, R).mean(1)
+    return (f * P).sum(-1).mean()
 
 
 def _positions(e, buckets: int):
@@ -157,13 +239,15 @@ def _positions(e, buckets: int):
     return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted).reshape(k, N).t(), counts
 
 
-def route_local(gates, k: int, capacity: int, m_idx: int, E_l: int):
+def route_local(gates, k: int, capacity: int, m_idx: int, E_l: int, choices=None):
     """`route_topk` for model rank `m_idx`'s experts [m_idx * E_l, (m_idx +
     1) * E_l): choices of other ranks' experts are dropped here (their rank
-    takes them). Returns (slot (N, k) into an (E_l * capacity + PAD_ROWS)
-    buffer, weight (N, k), keep (N, k), counts (E_l + 1,): the local
-    experts' choices before capacity, then the other ranks')."""
-    topv, topi = _choices(gates, k)
+    takes them). `choices` (weight, expert), each (N, k), where the router
+    chose otherwise than by the top-k of `gates`. Returns (slot (N, k) into
+    an (E_l * capacity + PAD_ROWS) buffer, weight (N, k), keep (N, k),
+    counts (E_l + 1,): the local experts' choices before capacity, then the
+    other ranks')."""
+    topv, topi = _choices(gates, k) if choices is None else choices
     local_e = topi - m_idx * E_l
     valid = (local_e >= 0) & (local_e < E_l)
     pos, counts = _positions(torch.where(valid, local_e, E_l), E_l + 1)
@@ -300,7 +384,7 @@ def _moe_ranked(p, cfg, x, mesh, ep: bool):
         y = SH.all_reduce_sum(y, mesh, ("model",))             # combine
 
     if "shared" in p:
-        sh, ff = p["shared"], cfg.d_ff * e.num_shared_experts
+        sh, ff = p["shared"], cfg.shared_ff
         Mm = sizes.get("model", 1)
         if ep and Mm > 1 and sh["up"]["w"].shape[-1] == ff and ff % Mm == 0:
             sh = _hidden_slice(sh, Mm, SH.axis_index(mesh, "model"))

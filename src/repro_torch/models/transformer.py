@@ -6,8 +6,8 @@ embeddings, attending bidirectionally; it has no decode step).
 
 Params keep the reference layout: the layer stack `blocks` is stacked on a
 leading repeat axis (one entry per repeat of `cfg.layer_pattern`), and
-kimi-k2's leading dense layers are a second stack, `dense_prefix`, run
-first. A Python loop over each stack replaces `lax.scan`.
+kimi-k2's leading dense layers (of width `d_ff`, the shared experts' being
+`cfg.shared_ff`) are a second stack, `dense_prefix`, run first. A Python loop over each stack replaces `lax.scan`.
 
 Model axis (dense family only): every function here also takes params
 stacked on a leading model axis M (leaves (M, ...), blocks (M, R, ...))
@@ -366,6 +366,8 @@ def _check_decoder(cfg):
     _check_family(cfg)
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: latent attention has no decode cache here")
 
 
 def _init_unit_cache(cfg, batch, cache_len, dtype, prefilled=0, device=None):

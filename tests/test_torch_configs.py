@@ -1,6 +1,7 @@
 """The port's architecture registry against the JAX package's: the same
-names, every field of every config and of its `smoke()` variant, the same
-input shapes; `init_params` gives `repro`'s tree (keys, shapes, dtypes) for
+names (and the port's own entries, `PORT_ONLY`), every field of every
+config and of its `smoke()` variant (the fields only the port has at their
+defaults, which keep the JAX package's behaviour), the same input shapes; `init_params` gives `repro`'s tree (keys, shapes, dtypes) for
 the moe, ssm, hybrid, vlm and audio archs (hubert also at head dim 80, its
 published one)."""
 import dataclasses
@@ -14,7 +15,7 @@ from repro.configs import INPUT_SHAPES as JAX_INPUT_SHAPES
 from repro.configs import get_arch as jax_arch
 from repro.configs import list_archs as jax_list_archs
 from repro.models import init_params as jax_init
-from repro_torch.configs import INPUT_SHAPES, get_arch, list_archs
+from repro_torch.configs import INPUT_SHAPES, PORT_ONLY, ArchConfig, get_arch, list_archs
 from repro_torch.models import init_params
 from repro_torch.utils import tree_flatten_with_path
 
@@ -22,14 +23,22 @@ FAMILIES = ["pixtral-12b", "rwkv6-3b", "kimi-k2-1t-a32b", "qwen3-moe-235b-a22b",
 
 
 def test_registry_names_match_repro():
-    assert list_archs() == jax_list_archs()
+    assert [n for n in list_archs() if n not in PORT_ONLY] == jax_list_archs()
+    assert set(PORT_ONLY) <= set(list_archs())
+
+
+# the fields the port's ArchConfig has beyond the JAX package's, at their defaults
+PORT_FIELDS = {f.name: f.default for f in dataclasses.fields(ArchConfig)
+               if f.name in ("mla", "rope_scaling", "router", "d_ff_shared")}
 
 
 @pytest.mark.parametrize("arch", jax_list_archs())
 def test_config_and_smoke_match_repro(arch):
     for ours, theirs in ((get_arch(arch), jax_arch(arch)),
                          (get_arch(arch).smoke(), jax_arch(arch).smoke())):
-        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        mine = dataclasses.asdict(ours)
+        assert {k: mine.pop(k) for k in PORT_FIELDS} == PORT_FIELDS
+        assert mine == dataclasses.asdict(theirs)
         assert (ours.q_dim, ours.kv_dim, ours.param_count(), ours.active_param_count()) == (
             theirs.q_dim, theirs.kv_dim, theirs.param_count(), theirs.active_param_count())
 

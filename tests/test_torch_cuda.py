@@ -307,6 +307,51 @@ def test_flash_bwd_kernels_match_plain(gen, B, H, KV, Tq, Tk, d, dtype, causal, 
     assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
 
 
+# B, H, T: latent attention's q and k 192 wide and v 128 (Kimi K2's MLA),
+# causal, bf16, in the model's layout (v a slice of the (B, T, H, 256)
+# k_nope | v projection); the cell's T of 8192 (at 8 of its 64 heads, so
+# the plain path's T x T scores fit beside it; the kernels' blocks do not
+# depend on H), all 64 heads at a T off the tile multiples, and a batch
+MLA = [(1, 8, 8192), (1, 64, 300), (2, 4, 77)]
+
+
+@pytest.mark.parametrize("B,H,T", MLA)
+def test_flash_mla_kernels_match_plain(gen, B, H, T):
+    """The (192, 128) forward, dq and dk/dv kernels against the plain path,
+    at the tolerances of the D = 128 bf16 cases: 2e-2 of max(1, max |plain|)
+    for o, dq, dk and dv (bf16 outputs of fp32 sums), 1e-4 for delta (an
+    fp32 row sum of 128 products)."""
+    def make(width):
+        return torch.randn(B, T, H, width, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, kv, do = make(192), make(192), make(256), make(128)
+    v = kv[..., 128:]
+    q, k, v, do = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(scale=192 ** -0.5 * 1.81326, causal=True)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    assert o.shape == (B, H, T, 128) and o.transpose(1, 2).is_contiguous()
+    ro, rl = attention_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=2e-2, rtol=0)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, got, want, t in (("delta", delta, plain[0], 1e-4), ("dq", dq, plain[1], 2e-2),
+                               ("dk", dk, plain[2], 2e-2), ("dv", dv, plain[3], 2e-2)):
+        want = want.float()
+        err = ((got.float() - want).abs().max() / max(1.0, want.abs().max().item())).item()
+        assert err <= t, (name, err)
+        assert torch.isfinite(got.float()).all(), name
+
+
+def test_flash_mla_widths_refuse_fp32(gen):
+    q = torch.zeros(1, 2, 16, 192, device="cuda")
+    k, v = torch.zeros(1, 2, 16, 192, device="cuda"), torch.zeros(1, 2, 16, 128, device="cuda")
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v, scale=1.0)
+
+
 def test_flash_bwd_dq_rejects_a_misaligned_o(gen):
     q = torch.randn(1, 4, 8, 32, generator=gen, device="cuda")
     k = torch.randn(1, 2, 8, 32, generator=gen, device="cuda")
