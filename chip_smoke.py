@@ -326,14 +326,24 @@ OPT_LEAF = 2 * 12288 * 28672
 # 1 x 8192-token unroll; the kernels at that step's attention shape
 MLA_LAYERS, MLA_HELD, MLA_VOCAB, MLA_T = 6, 8, 20480, 8192
 MLA_STEPS = 3                                  # timed, after one warm-up step
-MLA_KERNELS = {  # the kernel line's row -> (wrapper, CUDA source)
+MLA_KERNELS = {  # the kernel line's row -> (wrapper, CUDA source, dk/dv design)
     "flash_fwd_bf16_dv<192, 128>": ("flash_attention_fwd",
-                                    "src/repro_torch/kernels/csrc/flash_fwd.cu"),
+                                    "src/repro_torch/kernels/csrc/flash_fwd.cu", None),
     "bwd_dq_bf16_dv<192, 128>": ("flash_attention_bwd_dq",
-                                 "src/repro_torch/kernels/csrc/flash_bwd.cu"),
+                                 "src/repro_torch/kernels/csrc/flash_bwd.cu", None),
+    "bwd_dkv_wgmma<192, 128>": ("flash_attention_bwd_dkv",
+                                "src/repro_torch/kernels/csrc/flash_bwd.cu", "wgmma"),
     "bwd_dkv_bf16_dv<192, 128>": ("flash_attention_bwd_dkv",
-                                  "src/repro_torch/kernels/csrc/flash_bwd.cu"),
+                                  "src/repro_torch/kernels/csrc/flash_bwd.cu", "mma_sync"),
 }
+# (B, H, KV, T) below one 128-key tile, where the (192, 128) dk/dv keeps
+# its mma.sync kernel (G = 4)
+MLA_SHORT = (2, 4, 1, 77)
+# the dense learn cells' attention (mistral-large-123b: 96 query heads on 8
+# KV heads of 128, causal, bf16): label -> (batch, unroll); the dk/dv kernel
+# takes its warpgroup-MMA design there, as at MLA_T (the mla phase)
+DKV_CELLS = {"mistral-large b1-t8192": (1, 8192), "mistral-large b4-t2048": (4, 2048)}
+DKV_H, DKV_KV, DKV_D = 96, 8, 128
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -990,11 +1000,20 @@ def zero(counters):
     from repro_torch.kernels import dispatch
     for c in counters:
         c.launches = 0
+        for design in getattr(c, "design_launches", {}):
+            c.design_launches[design] = 0
     dispatch.stats(reset=True)
 
 
 def read(counters):
     return {c.__name__: c.launches for c in counters}
+
+
+def dkv_designs():
+    """The dk/dv kernel's launches per design since its counts were last
+    set to 0 (`zero`)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd_dkv
+    return dict(flash_attention_bwd_dkv.design_launches)
 
 
 def check_on_card(what):
@@ -3496,22 +3515,29 @@ def mla_phase(dev, counters, smi, device_ms, bound):
       over all heads), finite, in their layouts and bitwise deterministic; timed (`device_ms`) against that per-head plain loop,
       their bound and SDPA (which takes v narrower than q: its forward,
       and its whole backward for both backward rows);
+    - the dk/dv at MLA_SHORT, below one key tile, on its mma.sync design:
+      one counted launch, held against the plain version at BWD_TOL, finite,
+      bitwise deterministic, timed against the plain version, its bound
+      and SDPA's whole backward (GQA);
     - kimi-k2-instruct's train step at the cell's stage
       (build_seq_train_step: V-trace, remat; adamw(3e-4, clip_norm=1.0,
       master_fp32), in place) on one seeded 1 x MLA_T unroll: from zeroed
       counters, one warm-up and MLA_STEPS timed steps each launch exactly
       per layer two flash forwards (the forward and its remat recompute),
-      one dq and one dk/dv, all at (192, 128), 8 RMSNorms a layer (the
+      one dq and one dk/dv, all at (192, 128), the dk/dv on its
+      warpgroup-MMA design, 8 RMSNorms a layer (the
       block's two and the two latent norms, twice) and the final one, one
       scan, and the optimizer's launches; a finite loss and finite grads.
 
-    Returns (launch totals, {kernel row: its record}, the step's record)."""
+    Returns (launch totals, {kernel row: its record}, the step's record,
+    the phase's dk/dv launches by design)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention.ops import (
+        dkv_design,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_fwd,
@@ -3575,9 +3601,9 @@ def mla_phase(dev, counters, smi, device_ms, bound):
     del plain
     tol = {"flash_fwd_bf16_dv<192, 128>": TOL["bfloat16"],
            "bwd_dq_bf16_dv<192, 128>": BWD_TOL["bfloat16"],
-           "bwd_dkv_bf16_dv<192, 128>": BWD_TOL["bfloat16"]}
+           "bwd_dkv_wgmma<192, 128>": BWD_TOL["bfloat16"]}
     err = {"flash_fwd_bf16_dv<192, 128>": fwd_err, "bwd_dq_bf16_dv<192, 128>": errs["dq"],
-           "bwd_dkv_bf16_dv<192, 128>": max(errs["dk"], errs["dv"])}
+           "bwd_dkv_wgmma<192, 128>": max(errs["dk"], errs["dv"])}
     for name, e in err.items():
         check(e <= tol[name], f"mla {name}: err {e} > {tol[name]}")
     check(errs["delta"] <= BWD_TOL["float32"],
@@ -3609,7 +3635,7 @@ def mla_phase(dev, counters, smi, device_ms, bound):
             lambda: flash_attention_bwd_dq(q, k, v, o, do, lse, **kw),
             lambda: per_head(lambda *a: attention_bwd_ref(*a, **kw)[:2], q, k, v, o, lse, do),
             sdpa_bwd_ms, cost.attention_bwd_dq(q, k, v, o, do, lse, causal=True)),
-        "bwd_dkv_bf16_dv<192, 128>": (
+        "bwd_dkv_wgmma<192, 128>": (
             lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
             lambda: per_head(lambda *a: attention_bwd_grads_ref(*a, **kw), q, k, v, do,
                              lse, delta),
@@ -3624,12 +3650,62 @@ def mla_phase(dev, counters, smi, device_ms, bound):
                           bound_ms=b_ms, bound_by=b_by)
         if name == "bwd_dq_bf16_dv<192, 128>":
             rows[name]["note"] = "writes delta in its prologue; delta err " + str(errs["delta"])
+        if name == "bwd_dkv_wgmma<192, 128>":
+            rows[name]["design"] = dkv_design(q, k, v)
+            check(rows[name]["design"] == "wgmma", f"mla dk/dv: design {rows[name]['design']}")
         emit("kernel", name=name, **rows[name])
     del q, k, kv, v, do, o, lse, delta, qs, ks, vs, ol
     torch.cuda.empty_cache()
 
     names = [c.__name__ for c in counters]
     total = dict.fromkeys(names, 0)
+    designs = dict.fromkeys(dkv_designs(), 0)
+
+    B2, H2, KV2, T2 = MLA_SHORT
+    name = "bwd_dkv_bf16_dv<192, 128>"
+
+    def make2(heads, width):
+        return torch.randn(B2, heads, T2, width, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = make2(H2, dqk), make2(KV2, dqk), make2(KV2, dv), make2(H2, dv)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    _, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+    design = dkv_design(q, k, v)
+    check(design == "mma_sync", f"mla dk/dv at {MLA_SHORT}: design {design}")
+
+    def short():
+        return flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+    dk, dvg = counted_run(counters, total, short, {"flash_attention_bwd_dkv": 1},
+                          f"mla dk/dv at {MLA_SHORT}")
+    check(dkv_designs() == {"mma_sync": 1, "wgmma": 0},
+          f"mla dk/dv at {MLA_SHORT}: launches by design {dkv_designs()}")
+    designs["mma_sync"] += 1
+    want = attention_bwd_grads_ref(q, k, v, do, lse, delta, **kw)
+    err[name], tol[name] = max(rel_err(dk, want[1]), rel_err(dvg, want[2])), BWD_TOL["bfloat16"]
+    del want
+    check(err[name] <= tol[name], f"mla {name}: err {err[name]} > {tol[name]}")
+    check(finite(dk, dvg), f"mla {name}: non-finite grads")
+    check(dk.stride() == k.stride() and dvg.stride() == v.stride(),
+          f"mla {name}: grads not in k's and v's layouts")
+    check(all(torch.equal(a, b) for a, b in zip((dk, dvg), short())),
+          f"mla {name}: two identical calls differ")
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=kw["scale"],
+                                        enable_gqa=True)
+    b_ms, b_by = bound(cost.attention_bwd_dkv(q, k, v, do, lse, delta, causal=True), "bfloat16")
+    rows[name] = dict(shape=[B2, H2, KV2, T2, T2, dqk, dv], strided=False, dtype="bfloat16",
+                      causal=True, scale=kw["scale"], design=design,
+                      label="latent widths below a key tile", max_abs_err=err[name],
+                      tol=tol[name], ms=device_ms(short),
+                      plain_ms=device_ms(lambda: attention_bwd_grads_ref(
+                          q, k, v, do, lse, delta, **kw), plain=True),
+                      library_ms=device_ms(lambda: torch.autograd.grad(
+                          ol, (qs, ks, vs), do, retain_graph=True)),
+                      bound_ms=b_ms, bound_by=b_by,
+                      note="library_ms: SDPA's whole backward (dq, dk and dv)")
+    emit("kernel", name=name, **rows[name])
+    del q, k, v, do, o, lse, delta, dk, dvg, qs, ks, vs, ol
     torch.cuda.reset_peak_memory_stats()
     params = init_params(torch.Generator(device=dev).manual_seed(32), cfg)
     L = cfg.num_layers
@@ -3648,20 +3724,114 @@ def mla_phase(dev, counters, smi, device_ms, bound):
             f"mla train step {i}")
         check(all(bool(g.isfinite().all()) for g in tree_leaves(met.pop("grads"))),
               f"mla train step {i}: non-finite grads")
+        check(dkv_designs() == {"mma_sync": 0, "wgmma": L},
+              f"mla train step {i}: dk/dv launches by design {dkv_designs()}, want {L} wgmma")
+        designs["wgmma"] += L
         losses.append(float(met["loss"]))
         check(bool(np.isfinite(losses[-1])), f"mla train step {i}: loss {losses[-1]}")
         ms_each.append(ms)
     train = {"arch": cfg.name, "layers": L, "experts_held": MLA_HELD,
              "router_experts": cfg.router_experts, "vocab": cfg.vocab_size, "batch": [1, T],
              "params": sum(t.numel() for t in tree_leaves(params)),
-             "launches_per_step": per_step, "step_ms": ms_each[1:],
+             "launches_per_step": per_step,
+             "dkv_launches_per_step_by_design": {"mma_sync": 0, "wgmma": L},
+             "step_ms": ms_each[1:],
              "step_ms_median": statistics.median(ms_each[1:]), "losses": losses,
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del params, state, batch, step, met
     torch.cuda.empty_cache()
     emit("mla_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total,
-         kernels=rows, train=train)
-    return total, rows, train
+         kernels=rows, train=train, dkv_launches_by_design=designs)
+    return total, rows, train, designs
+
+
+def dkv_phase(dev, counters, smi, device_ms, bound):
+    """The dk/dv kernel at the dense learn cells' attention (DKV_CELLS:
+    mistral-large's 96 query heads on 8 KV heads of 128, causal, bf16, in
+    the model's (B, T, H, d) layout), where `dkv_design` picks the
+    warpgroup-MMA kernel: one launch a call, counted by design; held
+    against the plain version run one KV head (12 query heads) at a time
+    (one head's fp32 (T, T) scores take 268 MB at T = 8192) at BWD_TOL, over
+    max(1, max |plain|); finite and bitwise deterministic; timed
+    (`device_ms`) against that loop, its bound and SDPA's whole backward
+    (dq, dk and dv, GQA), which the port never calls.
+
+    Returns (launch totals, {label: record})."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention.ops import (
+        dkv_design,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_grads_ref
+
+    t_phase = time.perf_counter()
+    H, KV, d = DKV_H, DKV_KV, DKV_D
+    G = H // KV
+    gen = torch.Generator(device=dev).manual_seed(32)
+    total = dict.fromkeys((c.__name__ for c in counters), 0)
+    rows = {}
+    for label, (B, T) in DKV_CELLS.items():
+        def make(heads):
+            return (torch.randn(B, T, heads, d, generator=gen, device=dev).to(torch.bfloat16)
+                    .transpose(1, 2))
+
+        q, k, v, do = make(H), make(KV), make(KV), make(H)
+        kw = dict(scale=d ** -0.5, causal=True)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        _, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+        design = dkv_design(q, k, v)
+        check(design == "wgmma", f"dk/dv {label}: design {design}")
+        dk, dv = counted_run(counters, total,
+                             lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                             {"flash_attention_bwd_dkv": 1}, f"dk/dv {label}")
+        check(dkv_designs() == {"mma_sync": 0, "wgmma": 1},
+              f"dk/dv {label}: launches by design {dkv_designs()}")
+
+        def plain():
+            """attention_bwd_grads_ref one KV head and its G query heads at a time."""
+            out = [torch.empty_like(k), torch.empty_like(v)]
+            for g in range(KV):
+                qh, kh = slice(g * G, (g + 1) * G), slice(g, g + 1)
+                _, out[0][:, kh], out[1][:, kh] = attention_bwd_grads_ref(
+                    q[:, qh], k[:, kh], v[:, kh], do[:, qh], lse[:, qh], delta[:, qh], **kw)
+            return out
+
+        want = plain()
+        err = max(rel_err(dk, want[0]), rel_err(dv, want[1]))
+        del want
+        check(err <= BWD_TOL["bfloat16"], f"dk/dv {label}: err {err} > {BWD_TOL['bfloat16']}")
+        check(finite(dk, dv), f"dk/dv {label}: non-finite grads")
+        check(dk.stride() == k.stride() and dv.stride() == v.stride(),
+              f"dk/dv {label}: grads not in k's and v's layouts")
+        check(all(torch.equal(a, b) for a, b in
+                  zip((dk, dv), flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))),
+              f"dk/dv {label}: two identical calls differ")
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=kw["scale"],
+                                            enable_gqa=True)
+        library_ms = device_ms(lambda: torch.autograd.grad(ol, (qs, ks, vs), do,
+                                                           retain_graph=True))
+        b_ms, b_by = bound(cost.attention_bwd_dkv(q, k, v, do, lse, delta, causal=True),
+                           "bfloat16")
+        rows[label] = dict(shape=[B, H, KV, T, T, d], strided=True, dtype="bfloat16",
+                           causal=True, design=design, label=label, max_abs_err=err,
+                           tol=BWD_TOL["bfloat16"],
+                           ms=device_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                                        delta, **kw)),
+                           plain_ms=device_ms(plain, plain=True), library_ms=library_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           note="library_ms: SDPA's whole backward (dq, dk and dv)")
+        emit("kernel", name="flash_attention_bwd_dkv", **rows[label])
+        del q, k, v, do, o, lse, delta, dk, dv, qs, ks, vs, ol
+        torch.cuda.empty_cache()
+    emit("dkv_phase", card=smi, seconds=time.perf_counter() - t_phase, launches=total,
+         kernels=rows)
+    return total, rows
 
 
 def main() -> int:
@@ -3689,6 +3859,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.models import init_params
     from repro_torch.kernels.flash_attention.ops import (
+        dkv_design,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
     )
@@ -4228,6 +4399,8 @@ def main() -> int:
                      library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
             if name == "flash_attention_bwd_preprocess":
                 r["note"] = "runs inside flash_attention_bwd_dq: ms is the fused kernel's"
+            if name == "flash_attention_bwd_dkv":
+                r["design"] = dkv_design(q, k, v)
             results[name].append(r)
             emit("kernel", name=name, **r)
 
@@ -4442,6 +4615,7 @@ def main() -> int:
         state = opt.init(params)
         first = tree_map(torch.clone, params)
         before = {c.__name__: c.launches for c in counters}
+        designs_before = dkv_designs()
         times, losses = [], []
         for _ in range(n_steps):
             torch.cuda.synchronize()
@@ -4459,6 +4633,10 @@ def main() -> int:
             n = c.launches - before[c.__name__]
             want = n_steps * per_step[which][c.__name__]
             check(n == want, f"{which} step: {c.__name__} launched {n} times, want {want}")
+        # the policy's d = 32 (and the env step's T = 26): the mma.sync dk/dv
+        designs = {k: v - designs_before[k] for k, v in dkv_designs().items()}
+        check(designs == {"mma_sync": n_steps * L, "wgmma": 0},
+              f"{which} step: dk/dv launches by design {designs}")
         train[which] = {"median_step_ms": 1e3 * statistics.median(times),
                        "step_ms": [round(1e3 * t, 3) for t in times], "losses": losses,
                        "metrics": {k: v.item() for k, v in metrics.items()}}
@@ -4573,8 +4751,12 @@ def main() -> int:
             check(launches["train_families"][name] > 0,
                   f"{name} was never launched on the train_families path")
     # latent attention: its (192, 128) kernels and kimi-k2-instruct's train step
-    launches["mla"], mla_rows, mla_train = mla_phase(dev, counters, smi, device_ms, bound)
+    launches["mla"], mla_rows, mla_train, mla_designs = mla_phase(dev, counters, smi,
+                                                                   device_ms, bound)
     lap("mla")
+    # the dense learn cells' dk/dv, on its warpgroup-MMA design
+    launches["dkv"], dkv_rows = dkv_phase(dev, counters, smi, device_ms, bound)
+    lap("dkv")
 
     # -- 14. the mesh: a (1, 1) DeviceMesh of this card ---------------------------
     launches["mesh"], mesh_out = mesh_phase(dev, counters, smi, per_forward, holds)
@@ -4656,14 +4838,17 @@ def main() -> int:
                             "shape", "dtype")}})
     # latent attention's kernels, which replace no TPU kernel (the JAX
     # package has no latent attention): only the mla path's train steps
-    # launch them, since no other path runs a model with v narrower than q
-    for name, (wrapper, src) in MLA_KERNELS.items():
-        n = launches["mla"][wrapper]
+    # launch them, since no other path runs a model with v narrower than q;
+    # the dk/dv rows count their own design's launches
+    for name, (wrapper, src, design) in MLA_KERNELS.items():
+        n, per_step = ((launches["mla"][wrapper], mla_train["launches_per_step"][wrapper])
+                       if design is None else
+                       (mla_designs[design], mla_train["dkv_launches_per_step_by_design"][design]))
         kernels.append({"name": name, "wrapper": wrapper, "route": "cuda", "source": src,
                         **({"note": mla_rows[name]["note"]} if "note" in mla_rows[name] else {}),
+                        **({"design": design} if design else {}),
                         "replaces": None, "launches": n, "launches_by_path": {"mla": n},
-                        "launches_per_unit": {"train_step_kimi-k2-instruct.l6":
-                                              mla_train["launches_per_step"][wrapper]},
+                        "launches_per_unit": {"train_step_kimi-k2-instruct.l6": per_step},
                         **{key: mla_rows[name][key] for key in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                             "shape", "dtype")}})
@@ -4707,6 +4892,7 @@ def main() -> int:
                          for a, v in train_families_out.items()},
          mla=[round(mla_train["step_ms_median"], 3), round(mla_train["peak_gb"], 2),
               {n: [r["ms"], r["bound_ms"]] for n, r in mla_rows.items()}],
+         dkv={n: [r["ms"], r["bound_ms"], r["library_ms"]] for n, r in dkv_rows.items()},
          mesh={"flush_ms": {k: round(v, 3) for k, v in mesh_out["serve"]["flush_ms_median"].items()},
                "train_step_ms": round(mesh_out["train"]["step_ms_median"], 3),
                "train_peak_mb": round(mesh_out["train"]["peak_mb"]),

@@ -51,8 +51,9 @@ SIGNATURES = {
     # q/k/v/o/dO/dq strides, scale, causal, window, cap, kv_len, is_bf16, stream
     "flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
     # q, k, v, dO, lse, delta, dk, dv, B, H, KV, Tq, Tk, D, DV,
-    # q/k/v/dO/dk/dv strides, scale, causal, window, cap, kv_len, is_bf16, stream
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _P],
+    # q/k/v/dO/dk/dv strides, scale, causal, window, cap, kv_len, is_bf16,
+    # design (0 mma.sync / fp32, 1 warpgroup MMA), stream
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_I] * 18 + [_F, _I, _I, _F, _I, _I, _I, _P],
     # deltas, decays, init, y, B, T, is_bf16, stream
     "reverse_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
     # g, m, v, base, m_out, v_out, master_out, p_out, n, scale, lr, bc1, bc2,
@@ -159,13 +160,16 @@ def library() -> ctypes.CDLL:
 _launch_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`. Actor and learner threads launch
+def count_launch(wrapper, design=None) -> None:
+    """Add one to `wrapper.launches` and, given a design, to
+    `wrapper.design_launches[design]`. Actor and learner threads launch
     kernels at once, and `+=` on an attribute is a read, an add and a write
     that another thread can split, losing an increment; the lock keeps every
     one. A count is reset by assigning 0."""
     with _launch_lock:
         wrapper.launches += 1
+        if design is not None:
+            wrapper.design_launches[design] += 1
 
 
 def check(err: int, name: str) -> None:

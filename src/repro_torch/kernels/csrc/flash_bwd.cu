@@ -58,7 +58,31 @@
 //   tiles, whose accumulators would not fit beside the S fragments. The
 //   D == DV instantiations keep their loops as they were (`if constexpr`),
 //   so their code is unchanged. No fp32 regime at these widths.
+// - dk/dv on Hopper's warpgroup MMA (bwd_dkv_wgmma, below): bf16 at (D, DV)
+//   = (128, 128) and (192, 128) once Tk holds a 128-key tile, the learner
+//   cells' long unrolls (ops.py `dkv_design` routes by shape and dtype; the
+//   kernels above keep every other input: the env step's T = 26, where a
+//   128-key block would be 80 % padding and 32-key blocks fill the card in
+//   one wave, the other widths, fp32). What bounds it: the tensor cores.
+//   Executed, it is 2 (D + DV) flops a live pair for S^T and dP^T and 4 (D
+//   + DV) for dV and dK (P and dS enter as bf16 hi + lo), 1,920 at (192,
+//   128), against the 1,280 the roofline counts; each Q and dO byte meets
+//   128 keys, ~380 flops a byte read, above the card's ~295. What the
+//   mma.sync kernel lost and this one answers: 2-warp blocks of 32 keys (6
+//   warps an SM) restaging every Q and dO tile with cp.async (each byte met
+//   32 keys), and mma.sync, which cannot reach the tensor cores' rate. Here
+//   a block owns 128 keys, with K and V loaded once by TMA; a producer warp
+//   streams Q and dO tiles through a 4-slot ring by TMA (another warp
+//   writes the tiles' lse, delta and positions); two consumer warpgroups
+//   of 64 keys run wgmma (S^T, dP^T from shared memory; dV, dK with P^T and
+//   dS^T as register operands, nothing back through shared memory) with
+//   240 registers a thread (setmaxnreg). The elementwise work between the
+//   products is what remains in the way: a tile in which every pair is
+//   live skips the masks, and without a softcap P^T is computed while dP^T
+//   is still on the tensor cores; the two warpgroups overlap each other's.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -1137,6 +1161,307 @@ __global__ void __launch_bounds__(kDkvF32Threads) bwd_dkv_f32(const BwdParams p)
   }
 }
 
+// -- dk / dv on Hopper's warpgroup MMA ------------------------------------------
+//
+// bf16 at (D, DV) = (128, 128) and (192, 128) when Tk holds a whole key tile
+// (the wrapper's rule, ops.py `dkv_design`). One block per (128-key tile, KV
+// head, batch): a producer warp and two consumer warpgroups of 64 keys each
+// (wgmma's M), 384 threads, one block an SM, registers moved to the
+// consumers with setmaxnreg. K and V of the block's keys land once by TMA.
+// Q and dO tiles stream through a ring of STAGES slots: a tile is n = BQ / G
+// whole positions x the group's G query heads, one TMA box (64 columns, G
+// heads, n positions) per 64-column chunk over the (B, H, T, d) view, so
+// it lands as position-major stacked rows (stacked row r = position r / G
+// of query head kvh G + r % G) under the 128-byte swizzle that wgmma reads;
+// a second producer warp writes the rows' lse, delta and positions. Rows a
+// box leaves unwritten (n G < BQ) stay zero, with position -1.
+// Per tile, each consumer: S^T = K Q^T and dP^T = V dO^T (wgmma, K and V
+// K-major, Q and dO K-major, fp32 accumulators), P^T and dS^T on the
+// accumulator fragments (pair_grads' arithmetic and masks), then dV +=
+// P^T dO and dK += dS^T Q with P^T and dS^T as the register A operand,
+// bf16 hi + lo (two products each), and dO and Q read MN-major from the
+// same slots. Blocks take key tiles on grid y, so every head's first key
+// tile (the longest causal sweep) is dispatched first. Each dk/dv element
+// has one owner and a fixed order over the tiles: no atomics, bitwise
+// deterministic.
+constexpr int kWgKeys = 128;         // keys a block: two consumer warpgroups of 64
+constexpr int kWgThreads = 3 * 128;  // the producer's warpgroup and two consumers
+
+// BN and BQ are also flash_attention/ops.py's WGMMA_KEYS and WGMMA_ROWS,
+// which route to this kernel: change them together.
+template <int D, int DV> struct DkvWg {
+  static constexpr int BN = kWgKeys;
+  // stacked q rows a tile: at D = 192 the consumers' dk and dv take 160
+  // registers a thread, and 32-row S^T and dP^T (16 each) fit beside them
+  static constexpr int BQ = D == 192 ? 32 : 64;
+  static constexpr int STAGES = 4;
+  static constexpr int KC = D / 64, VC = DV / 64;     // 128-byte chunks of a row
+  static constexpr int K_BYTES = KC * BN * 128, V_BYTES = VC * BN * 128;
+  static constexpr int Q_BYTES = KC * BQ * 128, O_BYTES = VC * BQ * 128;
+  static constexpr int STATS = 3 * BQ * 4;            // lse, delta, position a row
+  static constexpr int smem =
+      1024 + K_BYTES + V_BYTES + STAGES * (Q_BYTES + O_BYTES + STATS) + 8 * (1 + 2 * STAGES);
+  static_assert(smem <= 232448, "shared memory a block");
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  const BwdParams p) {
+  using C = DkvWg<D, DV>;
+  using T = __nv_bfloat16;
+  constexpr int BN = C::BN, BQ = C::BQ, S = C::STAGES, KC = C::KC, VC = C::VC;
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4) + ((1024 - (repro::smem_addr(smem4) & 1023)) & 1023);
+  char* Ks = base;                                         // [KC][BN][128 B]
+  char* Vs = Ks + C::K_BYTES;                              // [VC][BN][128 B]
+  char* Qs = Vs + C::V_BYTES;                              // [S][KC][BQ][128 B]
+  char* Os = Qs + S * C::Q_BYTES;                          // [S][VC][BQ][128 B]
+  float* Ls = reinterpret_cast<float*>(Os + S * C::O_BYTES);  // [S][BQ] lse
+  float* Dl = Ls + S * BQ;                                 // [S][BQ] delta
+  int* Ps = reinterpret_cast<int*>(Dl + S * BQ);           // [S][BQ] position, -1: none
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(Ps + S * BQ);
+  uint64_t* full = kv_bar + 1;                             // [S] a tile landed
+  uint64_t* empty = full + S;                              // [S] both consumers done with it
+
+  const int kvh = blockIdx.x % p.KV, b = blockIdx.x / p.KV, k0 = blockIdx.y * BN;
+  const int G = p.H / p.KV, n = BQ / G;  // positions a tile
+  int q_lo, q_hi;
+  query_range(p, k0, BN, q_lo, q_hi);
+  const int it_lo = q_lo / n, tiles = q_hi > q_lo ? (q_hi + n - 1) / n - it_lo : 0;
+
+  if (threadIdx.x == 0) {
+    repro::mbar_init(kv_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      repro::mbar_init(&full[s], 33);  // the TMA lane and the stats warp's lanes
+      repro::mbar_init(&empty[s], 8);  // the consumers' warps
+    }
+    repro::mbar_init_fence();
+  }
+  if (n * G < BQ) {  // rows no box writes stay zero: they add nothing to dK and dV
+    for (int i = threadIdx.x; i < S * (C::Q_BYTES + C::O_BYTES) / 16; i += kWgThreads)
+      reinterpret_cast<float4*>(Qs)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    repro::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer: warp 0 issues the TMA loads, warp 1 the rows' stats
+    repro::setmaxnreg_dec<24>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0 && lane == 0) {
+      repro::mbar_arrive_expect_tx(kv_bar, C::K_BYTES + C::V_BYTES);
+      for (int c = 0; c < KC; ++c)
+        repro::tma_load_4d(Ks + c * BN * 128, &tk, kv_bar, 64 * c, kvh, k0, b);
+      for (int c = 0; c < VC; ++c)
+        repro::tma_load_4d(Vs + c * BN * 128, &tv, kv_bar, 64 * c, kvh, k0, b);
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % S, t0 = (it_lo + i) * n;
+        if (i >= S) repro::mbar_wait(&empty[s], (i / S - 1) & 1);
+        repro::mbar_arrive_expect_tx(&full[s], n * G * 128 * (KC + VC));
+        for (int c = 0; c < KC; ++c)
+          repro::tma_load_4d(Qs + s * C::Q_BYTES + c * BQ * 128, &tq, &full[s], 64 * c, kvh * G,
+                             t0, b);
+        for (int c = 0; c < VC; ++c)
+          repro::tma_load_4d(Os + s * C::O_BYTES + c * BQ * 128, &tdo, &full[s], 64 * c, kvh * G,
+                             t0, b);
+      }
+    } else if (warp == 1) {
+      // this lane's stacked rows r = lane + 32 u: position t0 + r / G of head r % G
+      constexpr int RL = (BQ + 31) / 32;
+      int dt[RL];
+      long long at[RL];
+#pragma unroll
+      for (int u = 0; u < RL; ++u) {
+        const int r = lane + 32 * u;
+        dt[u] = r < n * G ? r / G : p.Tq;  // rows no box writes: never a position
+        at[u] = (static_cast<long long>(b) * p.H + kvh * G + r % G) * p.Tq + dt[u];
+      }
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % S, t0 = (it_lo + i) * n;
+        if (i >= S) repro::mbar_wait(&empty[s], (i / S - 1) & 1);
+#pragma unroll
+        for (int u = 0; u < RL; ++u) {
+          const int r = lane + 32 * u;
+          if (r >= BQ) break;
+          const bool real = t0 + dt[u] < p.Tq;
+          Ls[s * BQ + r] = real ? p.lse[at[u] + t0] : 0.f;
+          Dl[s * BQ + r] = real ? p.delta[at[u] + t0] : 0.f;
+          Ps[s * BQ + r] = real ? t0 + dt[u] : -1;
+        }
+        repro::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  repro::setmaxnreg_inc<240>();
+  const int cw = threadIdx.x / 128 - 1;  // this warpgroup's keys: k0 + 64 cw ..
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int ka = k0 + 64 * cw + 16 * warp + g, kb = ka + 8;  // this lane's two keys
+  int wq_lo, wq_hi;
+  query_range(p, k0 + 64 * cw, 64, wq_lo, wq_hi);
+  const int kv_end = min(p.Tk, p.kv_len);
+
+  float dk[D / 2], dv[DV / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+  // K and V rows of this warpgroup (K-major A); k-step j: chunk j / 4, 32 (j % 4) bytes in
+  const uint64_t k_desc = repro::wgmma_desc(Ks + cw * 64 * 128, 16, 1024);
+  const uint64_t v_desc = repro::wgmma_desc(Vs + cw * 64 * 128, 16, 1024);
+  const auto kstep = [](int j, int rows) {  // descriptor offset, 16-byte units
+    return static_cast<uint64_t>((j / 4) * rows * 8 + (j % 4) * 2);
+  };
+  repro::mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % S, t0 = (it_lo + i) * n;
+    repro::mbar_wait(&full[s], (i / S) & 1);
+    if (wq_lo < wq_hi && t0 < wq_hi && t0 + n > wq_lo) {  // warpgroup-uniform
+      const char* Qt = Qs + s * C::Q_BYTES;
+      const char* Ot = Os + s * C::O_BYTES;
+      const float* Lt = Ls + s * BQ;
+      const float* Dt = Dl + s * BQ;
+      const int* Pt = Ps + s * BQ;
+      // S^T and dP^T as two groups: in a tile with neither masks nor a
+      // softcap, P^T is computed while dP^T is still on the tensor cores (a
+      // masked tile's mask registers do not fit beside it)
+      float st[BQ / 2], dpt[BQ / 2];
+      const uint64_t q_desc = repro::wgmma_desc(Qt, 16, 1024);
+      const uint64_t o_desc = repro::wgmma_desc(Ot, 16, 1024);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j)
+        repro::wgmma_ss<BQ>(st, k_desc + kstep(j, BN), q_desc + kstep(j, BQ), j > 0);
+      repro::wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < DV / 16; ++j)
+        repro::wgmma_ss<BQ>(dpt, v_desc + kstep(j, BN), o_desc + kstep(j, BQ), j > 0);
+      repro::wgmma_commit();
+
+      // Element e of accumulator chunk h: key (e < 2 ? ka : kb), stacked row
+      // 8 h + 2 c + (e & 1). FULL: every pair of this warpgroup's keys and
+      // the tile's positions is live, so no mask is evaluated (rows a box
+      // leaves zero, and positions past Tq, have q = dO = 0 and lse = delta
+      // = 0: p = 1 and ds = 0 there, and both multiply zero rows). k-step j
+      // of dV += P^T dO and dK += dS^T Q takes stacked rows 16 j .. 16 j +
+      // 15, chunks 2 j and 2 j + 1, split into bf16 hi + lo A registers and
+      // handed to their four products while the next k-step's are computed.
+      const auto grads = [&](auto full, auto capped) {
+        constexpr bool FULL = decltype(full)::value, CAPPED = decltype(capped)::value;
+        const auto live = [&](int h, int e) {
+          if constexpr (FULL) {
+            return true;
+          } else {
+            const int tq = Pt[8 * h + 2 * c + (e & 1)];
+            return tq >= 0 && pair_live(tq, e < 2 ? ka : kb, kv_end, p);
+          }
+        };
+        if constexpr (CAPPED || !FULL) {
+          repro::wgmma_wait<0>();
+          repro::wgmma_hold(st);
+          repro::wgmma_hold(dpt);
+        } else {
+          repro::wgmma_wait<1>();
+          repro::wgmma_hold(st);
+        }
+        if constexpr (!CAPPED) {
+          // p = exp2((s scale - lse) log2 e), pair_grads' without the softcap;
+          // a masked p is exactly 0, and so then is ds = p (dp - delta)
+#pragma unroll
+          for (int h = 0; h < BQ / 8; ++h) {
+            const float2 lse = *reinterpret_cast<const float2*>(Lt + 8 * h + 2 * c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float pj = repro::exp2_ftz(
+                  fmaf(st[4 * h + e] * p.scale, kLog2e, -(e & 1 ? lse.y : lse.x) * kLog2e));
+              st[4 * h + e] = live(h, e) ? pj : 0.f;
+            }
+          }
+          if constexpr (FULL) {
+            repro::wgmma_wait<0>();
+            repro::wgmma_hold(dpt);
+          }
+        }
+        unsigned ph[BQ / 16][4], pl[BQ / 16][4], sh[BQ / 16][4], sl[BQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int h = 2 * j + u;
+            const float2 delta = *reinterpret_cast<const float2*>(Dt + 8 * h + 2 * c);
+            const float2 lse = *reinterpret_cast<const float2*>(Lt + 8 * h + 2 * c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float de = e & 1 ? delta.y : delta.x;
+              if constexpr (CAPPED) {
+                float pj, ds;
+                pair_grads(st[4 * h + e], dpt[4 * h + e], e & 1 ? lse.y : lse.x, de, live(h, e),
+                           p, pj, ds);
+                st[4 * h + e] = pj;
+                dpt[4 * h + e] = ds;
+              } else {
+                dpt[4 * h + e] = st[4 * h + e] * (dpt[4 * h + e] - de);
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {  // A register 2 u + e / 2: chunk h, row g or g + 8
+              repro::split_bf16(st[4 * h + e], st[4 * h + e + 1], ph[j][2 * u + e / 2],
+                                pl[j][2 * u + e / 2]);
+              repro::split_bf16(dpt[4 * h + e], dpt[4 * h + e + 1], sh[j][2 * u + e / 2],
+                                sl[j][2 * u + e / 2]);
+            }
+          }
+          // rows 16 j .. 16 j + 15 of the slots, MN-major: chunks BQ * 128 bytes apart
+          const uint64_t bo = repro::wgmma_desc(Ot + j * 16 * 128, BQ * 128, 1024);
+          const uint64_t bq = repro::wgmma_desc(Qt + j * 16 * 128, BQ * 128, 1024);
+          repro::wgmma_fence();
+          repro::wgmma_rs<DV>(dv, ph[j], bo);
+          repro::wgmma_rs<DV>(dv, pl[j], bo);
+          repro::wgmma_rs<D>(dk, sh[j], bq);
+          repro::wgmma_rs<D>(dk, sl[j], bq);
+          repro::wgmma_commit();
+        }
+        repro::wgmma_wait<0>();
+        repro::wgmma_hold(dv);
+        repro::wgmma_hold(dk);
+      };
+      const int kmin = k0 + 64 * cw, kmax = kmin + 63;
+      const bool full = (!p.causal || t0 >= kmax) && kmax < kv_end
+                        && (p.window <= 0 || t0 + n - 1 - kmin < p.window);
+      using Yes = std::true_type;
+      using No = std::false_type;
+      if (p.cap > 0.f) {
+        full ? grads(Yes{}, Yes{}) : grads(No{}, Yes{});
+      } else {
+        full ? grads(Yes{}, No{}) : grads(No{}, No{});
+      }
+    }
+    __syncwarp();
+    if (lane == 0) repro::mbar_arrive(&empty[s]);
+  }
+
+  T* dkb = static_cast<T*>(p.dk) + b * p.sgkb + kvh * p.sgkh;
+  T* dvb = static_cast<T*>(p.dv) + b * p.sgvb + kvh * p.sgvh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = r ? kb : ka;
+    if (j >= p.Tk) continue;
+#pragma unroll
+    for (int h = 0; h < D / 8; ++h)
+      *reinterpret_cast<unsigned*>(dkb + j * p.sgkt + 8 * h + 2 * c) =
+          repro::pack_bf16(dk[4 * h + 2 * r] * p.scale, dk[4 * h + 2 * r + 1] * p.scale);
+#pragma unroll
+    for (int h = 0; h < DV / 8; ++h)
+      *reinterpret_cast<unsigned*>(dvb + j * p.sgvt + 8 * h + 2 * c) =
+          repro::pack_bf16(dv[4 * h + 2 * r], dv[4 * h + 2 * r + 1]);
+  }
+}
+
 // -- launch -----------------------------------------------------------------
 
 template <typename F>
@@ -1186,13 +1511,90 @@ cudaError_t launch_dv(bool dkv, bool bf16, const BwdParams& p, cudaStream_t s) {
   return launch(bwd_dq_bf16_dv<D, DV>, grid, kDqBf16Threads, DqBf16<D, DV>::smem, p, s);
 }
 
-int run(bool dkv, int D, int DV, int is_bf16, const BwdParams& p, void* stream) {
+// cuTensorMapEncodeTiled from the driver through the runtime, so nothing
+// links libcuda; null if the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, heads, T, width) tensor addressed through (batch, head, time)
+// strides in elements, as a 4D map (width, heads, T, B) whose box is (64
+// columns, box_heads, box_t, 1) under the 128-byte swizzle. The stride of a
+// size-1 dim is never used: any multiple of 16 bytes stands in for it.
+bool tensor_map(CUtensorMap* m, const void* ptr, int B, int heads, int T, int width,
+                long long sb, long long sh, long long st, int box_heads, int box_t) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const auto bytes = [](long long s, int n) -> cuuint64_t {
+    return n == 1 ? 16 : static_cast<cuuint64_t>(s) * 2;
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(sh, heads), bytes(st, T), bytes(sb, B)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_t), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int DV>
+cudaError_t launch_dkv_wgmma(const BwdParams& p, cudaStream_t s) {
+  using C = DkvWg<D, DV>;
+  const int G = p.H / p.KV;
+  if (G > C::BQ || p.Tk < C::BN) return cudaErrorInvalidValue;
+  const int n = C::BQ / G;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, p.q, p.B, p.H, p.Tq, D, p.sqb, p.sqh, p.sqt, G, n)
+      || !tensor_map(&tk, p.k, p.B, p.KV, p.Tk, D, p.skb, p.skh, p.skt, 1, C::BN)
+      || !tensor_map(&tv, p.v, p.B, p.KV, p.Tk, DV, p.svb, p.svh, p.svt, 1, C::BN)
+      || !tensor_map(&tdo, p.dout, p.B, p.H, p.Tq, DV, p.sdob, p.sdoh, p.sdot, G, n)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto kernel = bwd_dkv_wgmma<D, DV>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+  if (e != cudaSuccess) return e;
+  // key tiles on y: every head's first (longest causal) tile is dispatched first
+  const dim3 grid(p.KV * p.B, (p.Tk + C::BN - 1) / C::BN);
+  kernel<<<grid, kWgThreads, C::smem, s>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+int run(bool dkv, int D, int DV, int is_bf16, int design, const BwdParams& p,
+        void* stream) {
   if (p.B == 0 || p.H == 0 || p.Tq == 0 || p.Tk == 0) {
     return static_cast<int>(cudaGetLastError());
   }
   auto s = static_cast<cudaStream_t>(stream);
   const bool bf16 = is_bf16 != 0;
   cudaError_t e;
+  if (dkv && design == 1) {  // warpgroup MMA: bf16 at (128, 128) and (192, 128)
+    e = !bf16 ? cudaErrorInvalidValue
+        : D == 128 && DV == 128 ? launch_dkv_wgmma<128, 128>(p, s)
+        : D == 192 && DV == 128 ? launch_dkv_wgmma<192, 128>(p, s)
+                                : cudaErrorInvalidValue;
+    return static_cast<int>(e);
+  }
   if (D != DV) {
     e = D == 192 && DV == 128 ? launch_dv<192, 128>(dkv, bf16, p, s) : cudaErrorInvalidValue;
     return static_cast<int>(e);
@@ -1230,12 +1632,14 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                     sdob, sdoh, sdot,
                     sgqb, sgqh, sgqt, 0, 0, 0, 0, 0, 0,
                     scale, causal, window, cap, kv_len, cap > 0.f ? 1.f / cap : 0.f};
-  return run(false, D, DV, is_bf16, p, stream);
+  return run(false, D, DV, is_bf16, 0, p, stream);
 }
 
 // dk, dv: like k and v, in k's dtype, one gradient per KV head (the sum
 // over its G query heads); delta as flash_bwd_dq wrote it; other arguments
-// as flash_bwd_dq.
+// as flash_bwd_dq. design 0: the mma.sync (bf16) or CUDA-core (fp32)
+// kernels; 1: the warpgroup-MMA kernel (bf16 at (128, 128) or (192, 128),
+// Tk >= 128, G <= 64, every tensor's base and strides 16-byte aligned).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
                              int B, int H, int KV, int Tq, int Tk, int D, int DV,
@@ -1243,7 +1647,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int svb, int svh, int svt, int sdob, int sdoh, int sdot,
                              int sgkb, int sgkh, int sgkt, int sgvb, int sgvh, int sgvt,
                              float scale, int causal, int window, float cap, int kv_len,
-                             int is_bf16, void* stream) {
+                             int is_bf16, int design, void* stream) {
   const BwdParams p{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                     static_cast<float*>(const_cast<void*>(delta)), nullptr, dk, dv,
                     B, H, KV, Tq, Tk,
@@ -1251,5 +1655,5 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                     sdob, sdoh, sdot,
                     0, 0, 0, sgkb, sgkh, sgkt, sgvb, sgvh, sgvt,
                     scale, causal, window, cap, kv_len, cap > 0.f ? 1.f / cap : 0.f};
-  return run(true, D, DV, is_bf16, p, stream);
+  return run(true, D, DV, is_bf16, design, p, stream);
 }

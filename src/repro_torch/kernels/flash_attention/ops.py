@@ -26,6 +26,13 @@ evaluation); `cost.py` has each kernel's work.
 v (and so o and dO) may be narrower than q and k: latent attention's q
 and k are 192 wide and v 128 (`WIDE_PAIRS`), which the bf16 kernels take
 at those widths, nothing padded.
+
+The dk/dv kernel has two designs, and `dkv_design` picks one from the
+inputs' shapes and dtype: the warpgroup-MMA kernel (128-key blocks, Q and
+dO tiles fed by TMA) for bf16 at (128, 128) and (192, 128) once Tk holds a
+whole key tile, and the mma.sync and fp32 kernels (32-key blocks, which
+fill the card at the env step's T = 26) for everything else.
+`flash_attention_bwd_dkv.design_launches` counts launches per design.
 """
 from __future__ import annotations
 
@@ -44,6 +51,11 @@ HEAD_DIMS = (32, 64, 80, 128, 256)
 WIDE_PAIRS = ((192, 128),)  # (q's and k's width, v's): bf16 only
 _INT_MAX = 2 ** 31 - 1
 ALIGN = 16          # bytes: one cp.async chunk
+DKV_DESIGNS = ("mma_sync", "wgmma")  # flash_bwd_dkv's `design` argument, in order
+WGMMA_PAIRS = ((128, 128), (192, 128))
+# csrc/flash_bwd.cu's DkvWg<D, DV>::BN and ::BQ: change them together
+WGMMA_KEYS = 128    # keys a block of the wgmma kernel
+WGMMA_ROWS = {128: 64, 192: 32}  # stacked q rows a tile of it, by d: a position's G heads fit
 
 
 def _check(q, k, v, mixed):
@@ -219,6 +231,17 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, scale, causal=True,
     return dq, delta
 
 
+def dkv_design(q, k, v) -> str:
+    """The dk/dv kernel for q (B, H, Tq, d), k (B, KV, Tk, d), v (B, KV,
+    Tk, dv), from shapes and dtype alone: "wgmma" for bf16 at (d, dv) in
+    WGMMA_PAIRS with Tk >= WGMMA_KEYS and G = H / KV <= WGMMA_ROWS[d],
+    else "mma_sync" (the env step's short unrolls, the other widths, fp32)."""
+    if (q.dtype == torch.bfloat16 and (q.shape[3], v.shape[3]) in WGMMA_PAIRS
+            and k.shape[2] >= WGMMA_KEYS and q.shape[1] // k.shape[1] <= WGMMA_ROWS[q.shape[3]]):
+        return "wgmma"
+    return "mma_sync"
+
+
 @cost.counted("flash_attention_bwd_dkv", cost.attention_bwd_dkv)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
                             window=0, cap=0.0, kv_len=None):
@@ -236,20 +259,22 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
         return dk, dv
     strides = _strides(q, k, v, do, dk, dv)
     kv_len = Tk if kv_len is None else min(int(kv_len), Tk)
+    design = dkv_design(q, k, v)
     lib = _build.library()
     err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                             B, H, KV, Tq, Tk, d, dvw, *strides,
                             float(scale), int(causal), int(window), float(cap or 0.0),
-                            kv_len, int(q.dtype == torch.bfloat16),
+                            kv_len, int(q.dtype == torch.bfloat16), DKV_DESIGNS.index(design),
                             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dkv")
-    _build.count_launch(flash_attention_bwd_dkv)
+    _build.count_launch(flash_attention_bwd_dkv, design)
     return dk, dv
 
 
 for _fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
     _fn.launches = 0
+flash_attention_bwd_dkv.design_launches = dict.fromkeys(DKV_DESIGNS, 0)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale, causal=True, window=0,

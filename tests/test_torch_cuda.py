@@ -29,6 +29,7 @@ from repro_torch.actors.policy import make_obs_policy
 from repro_torch.configs import get_arch
 from repro_torch.infserver import InfServer
 from repro_torch.kernels.flash_attention.ops import (
+    dkv_design,
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -290,9 +291,12 @@ def test_flash_bwd_kernels_match_plain(gen, B, H, KV, Tq, Tk, d, dtype, causal, 
     o, lse = flash_attention_fwd(q, k, v, **kw)
     counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
     before = [c.launches for c in counters]
+    designs = dict(flash_attention_bwd_dkv.design_launches)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     assert [c.launches for c in counters] == [n + 1 for n in before]
+    designs[dkv_design(q, k, v)] += 1
+    assert flash_attention_bwd_dkv.design_launches == designs
     assert dq.stride() == q.stride() and dk.stride() == k.stride() and dv.stride() == v.stride()
     plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -334,7 +338,10 @@ def test_flash_mla_kernels_match_plain(gen, B, H, T):
     torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
     torch.testing.assert_close(lse, rl, atol=2e-2, rtol=0)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+    designs = dict(flash_attention_bwd_dkv.design_launches)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    designs[dkv_design(q, k, v)] += 1     # T >= 128: the warpgroup-MMA kernel
+    assert flash_attention_bwd_dkv.design_launches == designs
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for name, got, want, t in (("delta", delta, plain[0], 1e-4), ("dq", dq, plain[1], 2e-2),
@@ -343,6 +350,60 @@ def test_flash_mla_kernels_match_plain(gen, B, H, T):
         err = ((got.float() - want).abs().max() / max(1.0, want.abs().max().item())).item()
         assert err <= t, (name, err)
         assert torch.isfinite(got.float()).all(), name
+
+
+# B, H, KV, Tq, Tk, d, dv, causal, window, cap, kv_len: shapes the
+# warpgroup-MMA dk/dv kernel takes (bf16, Tk >= 128)
+DKV_WGMMA = [
+    (1, 16, 4, 1030, 1030, 128, 128, True, 0, 0.0, None),   # Tk off the 128-key tile, G = 4
+    (2, 8, 2, 300, 300, 128, 128, True, 100, 20.0, 250),    # window, softcap, kv_len tail
+    (1, 8, 8, 200, 333, 128, 128, False, 0, 0.0, None),     # Tq < Tk
+    (1, 4, 4, 400, 150, 128, 128, True, 0, 0.0, None),      # Tq > Tk: keys past the queries
+    (1, 64, 4, 300, 300, 128, 128, True, 0, 0.0, None),     # G = 16 (qwen3-moe)
+    (1, 64, 1, 300, 300, 128, 128, True, 0, 0.0, None),     # G = 64: one position a tile
+    # mistral-large's G = 12 at the cell's unroll, on 2 of its 8 KV heads: the
+    # plain path's fp32 (24, 8192, 8192) scores and grads fit beside it
+    (1, 24, 2, 8192, 8192, 128, 128, True, 0, 0.0, None),
+    (2, 8, 2, 300, 300, 192, 128, True, 64, 30.0, 260),     # latent widths, G = 4, every mask
+    (1, 32, 1, 257, 257, 192, 128, True, 0, 0.0, None),     # G = 32: one position a tile
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,d,dv,causal,window,cap,kv_len", DKV_WGMMA)
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_flash_bwd_dkv_wgmma_matches_plain(gen, B, H, KV, Tq, Tk, d, dv, causal, window, cap,
+                                           kv_len, layout):
+    """The warpgroup-MMA dk/dv kernel against the plain path at the bf16
+    tolerance (2e-2 of max(1, max |plain|)), bitwise equal over two calls;
+    each call moves its design's launch count and no other."""
+    def make(heads, T, w):
+        if layout == "bhtd":
+            return torch.randn(B, heads, T, w, generator=gen, device="cuda").to(torch.bfloat16)
+        return (torch.randn(B, T, heads, w, generator=gen, device="cuda").to(torch.bfloat16)
+                .transpose(1, 2))
+
+    q, k, do = make(H, Tq, d), make(KV, Tk, d), make(H, Tq, dv)
+    v = make(KV, Tk, d + dv)[..., d:] if layout == "bthd" and d != dv else make(KV, Tk, dv)
+    assert dkv_design(q, k, v) == "wgmma"
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, cap=cap, kv_len=kv_len)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+    before = flash_attention_bwd_dkv.launches
+    designs = dict(flash_attention_bwd_dkv.design_launches)
+    dk, dvg = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert flash_attention_bwd_dkv.launches == before + 1
+    assert flash_attention_bwd_dkv.design_launches == dict(designs, wgmma=designs["wgmma"] + 1)
+    # in k's and v's layouts (dv dense in v's axis order where v is a slice)
+    assert dk.stride() == k.stride() and dvg.stride() == torch.empty_like(v).stride()
+    plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, got, want in (("dk", dk, plain[2]), ("dv", dvg, plain[3])):
+        want = want.float()
+        err = ((got.float() - want).abs().max() / max(1.0, want.abs().max().item())).item()
+        assert err <= 2e-2, (name, err)
+        assert torch.isfinite(got.float()).all(), name
+    del plain
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dvg, dv2)     # no atomics: deterministic
 
 
 def test_flash_mla_widths_refuse_fp32(gen):

@@ -28,6 +28,7 @@ from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
 from repro.kernels.vtrace_scan.ops import reverse_discounted_scan as jax_scan
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import (
+    dkv_design,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -228,6 +229,73 @@ def test_flash_bwd_cpu_calls_launch_nothing():
     q = torch.ones(1, 2, 4, 32)
     flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 4), q, scale=1.0)
     assert [c.launches for c in counters] == before
+
+
+# B, H, KV, Tk, d, dv, dtype -> the dk/dv kernel `dkv_design` picks
+DKV_ROUTES = [
+    ((1, 64, 64, 8192, 192, 128, torch.bfloat16), "wgmma"),    # kimi's MLA cell
+    ((1, 96, 8, 8192, 128, 128, torch.bfloat16), "wgmma"),     # mistral-large b1, G = 12
+    ((4, 96, 8, 2048, 128, 128, torch.bfloat16), "wgmma"),     # mistral-large b4
+    ((1, 64, 4, 4096, 128, 128, torch.bfloat16), "wgmma"),     # qwen3-moe, G = 16
+    ((2, 64, 8, 128, 128, 128, torch.bfloat16), "wgmma"),      # one whole key tile
+    ((1, 64, 1, 1030, 128, 128, torch.bfloat16), "wgmma"),     # G = 64: one position a tile
+    ((1, 8, 8, 300, 192, 128, torch.bfloat16), "wgmma"),
+    ((1, 32, 1, 300, 192, 128, torch.bfloat16), "wgmma"),      # G = 32: one position a tile
+    ((1, 64, 1, 300, 192, 128, torch.bfloat16), "mma_sync"),   # G = 64 at d 192: none
+    ((1, 128, 1, 4096, 128, 128, torch.bfloat16), "mma_sync"),  # G = 128: no position fits
+    ((2, 64, 8, 127, 128, 128, torch.bfloat16), "mma_sync"),   # Tk below a key tile
+    ((512, 4, 2, 26, 128, 128, torch.bfloat16), "mma_sync"),   # an env step's T = 26
+    ((2, 4, 1, 77, 192, 128, torch.bfloat16), "mma_sync"),
+    ((1, 4, 2, 4096, 32, 32, torch.bfloat16), "mma_sync"),     # the league's policies
+    ((512, 4, 2, 26, 32, 32, torch.bfloat16), "mma_sync"),
+    ((1, 25, 5, 4096, 64, 64, torch.bfloat16), "mma_sync"),    # hymba
+    ((1, 16, 16, 4096, 80, 80, torch.bfloat16), "mma_sync"),   # hubert
+    ((1, 8, 2, 4096, 256, 256, torch.bfloat16), "mma_sync"),
+    ((1, 4, 2, 4096, 32, 32, torch.float32), "mma_sync"),      # fp32 learners
+    ((1, 16, 1, 4096, 128, 128, torch.float32), "mma_sync"),
+]
+
+
+@pytest.mark.parametrize("shape,design", DKV_ROUTES)
+def test_dkv_design_routes_by_shape_and_dtype(shape, design):
+    """The warpgroup-MMA dk/dv kernel takes bf16 at (128, 128) and (192,
+    128) once Tk holds a 128-key tile and a tile of stacked rows (64 at d
+    128, 32 at d 192) holds a position of the group; every other input
+    keeps the mma.sync and fp32 kernels. The
+    rule reads shapes and dtype only, so meta tensors answer it, and a
+    meta call checks the inputs and launches nothing."""
+    B, H, KV, Tk, d, dv, dtype = shape
+    q = torch.empty(B, H, Tk, d, dtype=dtype, device="meta")
+    k = torch.empty(B, KV, Tk, d, dtype=dtype, device="meta")
+    v = torch.empty(B, KV, Tk, dv, dtype=dtype, device="meta")
+    assert dkv_design(q, k, v) == design
+    # the model's (B, T, H, d) layout answers the same
+    assert dkv_design(*(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))) == design
+    before = (flash_attention_bwd_dkv.launches, dict(flash_attention_bwd_dkv.design_launches))
+    stats = torch.empty(B, H, Tk, device="meta")
+    dk, dvg = flash_attention_bwd_dkv(q, k, v, torch.empty(B, H, Tk, dv, dtype=dtype, device="meta"),
+                                      stats, stats, scale=d ** -0.5)
+    assert dk.shape == k.shape and dvg.shape == v.shape
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dkv.design_launches) == before
+
+
+@pytest.mark.parametrize("d,dv,T", [(128, 128, 130), (192, 128, 128), (128, 128, 40)])
+def test_flash_bwd_dkv_cpu_calls_move_no_design_count(d, dv, T):
+    """On the CPU the plain version runs whichever kernel the rule would
+    pick on the card, and neither `.launches` nor a design's count moves."""
+    rng = np.random.default_rng(32)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 4, T, w)).astype(np.float32))
+             .to(torch.bfloat16) for w in (d, dv))
+    k = torch.from_numpy(rng.standard_normal((1, 2, T, d)).astype(np.float32)).to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((1, 2, T, dv)).astype(np.float32)).to(torch.bfloat16)
+    lse = torch.from_numpy(rng.standard_normal((1, 4, T)).astype(np.float32))
+    assert dkv_design(q, k, v) == ("wgmma" if T >= 128 else "mma_sync")
+    before = (flash_attention_bwd_dkv.launches, dict(flash_attention_bwd_dkv.design_launches))
+    dk, dvg = flash_attention_bwd_dkv(q, k, v, do, lse, lse, scale=d ** -0.5)
+    assert dk.shape == k.shape and dvg.shape == v.shape and torch.isfinite(dk.float()).all()
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dkv.design_launches) == before
 
 
 # -- the reverse scan ---------------------------------------------------------------
